@@ -1,0 +1,146 @@
+"""Boundaries of the port: ray_tpu_torch and chip_smoke.py import no JAX
+and nothing of ray_tpu; entry points never run on the CPU unless asked;
+the CUDA wrappers never fall back to their plain versions."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch._kernels import build
+from ray_tpu_torch.models import TransformerConfig, init_params
+from ray_tpu_torch.models import engine, generate, transformer
+from ray_tpu_torch.ops import attention, fused
+from ray_tpu_torch.serve import LMBackend
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+_FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+
+_PROBE = """
+import importlib, pkgutil, sys
+import ray_tpu_torch
+for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_importing_the_port_and_chip_smoke_loads_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in _FORBIDDEN, (path, name)
+
+
+def _tiny():
+    return TransformerConfig(vocab_size=32, d_model=32, n_layers=1,
+                             n_heads=2, n_kv_heads=1, d_ff=32,
+                             max_seq_len=16, dtype=torch.float32)
+
+
+def _cpu_params():
+    return init_params(torch.Generator().manual_seed(0), _tiny(),
+                       device="cpu")
+
+
+_ENTRY_POINTS = {
+    "default_device": lambda: ray_tpu_torch.default_device(),
+    "default_device_cuda": lambda: ray_tpu_torch.default_device("cuda"),
+    "init_params": lambda: init_params(torch.Generator(), _tiny()),
+    "params_from_numpy": lambda: transformer.params_from_numpy(
+        {"embed": np.zeros((2, 2))}),
+    "init_cache": lambda: generate.init_cache(_tiny(), 1, 4),
+    "generate": lambda: generate.generate(_cpu_params(), [[1, 2]], _tiny(),
+                                          2),
+    "GenerationEngine": lambda: engine.GenerationEngine(_cpu_params(),
+                                                        _tiny()),
+    "LMBackend": lambda: LMBackend(_cpu_params(), _tiny()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_without_device_raise_when_cuda_is_absent(
+        name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _ENTRY_POINTS[name]()
+
+
+def test_entry_points_run_on_the_cpu_when_asked():
+    assert ray_tpu_torch.default_device("cpu") == torch.device("cpu")
+    out = generate.generate(_cpu_params(), [[1, 2]], _tiny(), 3,
+                            device="cpu")
+    assert out.shape == (1, 3) and out.dtype == torch.int32
+
+
+def test_rms_norm_kernel_wrapper_refuses_what_it_does_not_take():
+    """Off the CPU, rms_norm takes the kernel or raises: a tensor the
+    kernel does not take is refused, never handed to the plain version,
+    and nothing is counted."""
+    before = fused.rms_norm.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused.rms_norm(torch.ones(2, 8, device="meta"),
+                       torch.ones(8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused._rms_norm_cuda(torch.ones(2, 8), torch.ones(8), 1e-5)
+    assert fused.rms_norm.launches == before
+
+
+def test_decode_kernel_wrapper_refuses_what_it_does_not_take():
+    before = attention.decode_attention.launches
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.decode_attention(
+            torch.ones(1, 2, 64, **meta), torch.ones(1, 4, 2, 64, **meta),
+            torch.ones(1, 4, 2, 64, **meta),
+            torch.zeros(1, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention._decode_attention_cuda(
+            torch.ones(1, 2, 64), torch.ones(1, 4, 2, 64),
+            torch.ones(1, 4, 2, 64), torch.zeros(1, dtype=torch.int32))
+    assert attention.decode_attention.launches == before
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["rms_norm"])
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_kernel_sources_exist_and_library_names_track_them():
+    for name in build.KERNELS:
+        src = build.CSRC / f"{name}.cu"
+        assert src.is_file()
+        assert 'extern "C"' in src.read_text()
+        assert build.lib_path(name).parent == build.BUILD_DIR
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
