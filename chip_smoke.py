@@ -8,11 +8,12 @@ nothing of JAX. Phases, each of which makes the script exit non-zero when
 it fails:
 
 1. start-up: the card's name and power limit (nvidia-smi), then nvcc builds
-   every kernel of the path from ray_tpu_torch/csrc into
+   every kernel of both paths from ray_tpu_torch/csrc into
    ray_tpu_torch/_build (one nvcc per source, all at once);
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, in f32 and bf16;
-3. the main path at the flagship config's full width (vocab 32000,
+   shapes the serving and training paths give it (and GQA and ragged
+   shapes), in f32 and bf16;
+3. the serving path at the flagship config's full width (vocab 32000,
    d_model 1024, 8 layers, 16 heads, bf16, 8 slots, max_seq 2048, random
    weights from a seed): one batched LMBackend call of 12 greedy requests,
    one seeded sampled request twice, one streamed request; every launch
@@ -20,9 +21,18 @@ it fails:
    path went through each kernel as often as its structure says;
 4. the same weights in f32 on the card and on the CPU, teacher-forced
    through 3 prompts for 16 decode steps: logits within atol 1e-3;
-5. timings (CUDA events) of each kernel, its plain version and the
+5. the training path at the same config (bf16 compute, f32 params, AdamW):
+   5 train steps at batch 8, seq 2048 on one seeded batch; the counters are
+   set to 0 just before and read after every step, which must show 2L+1
+   RMSNorm, 1 cross-entropy, and L each of the flash forward, dq and dk/dv
+   launches; the loss starts within 1.0 of ln(32000) and falls;
+6. one f32 train step at full width and depth (batch 1, seq 256) on the
+   card and on the CPU from the same weights: the loss, every gradient,
+   and the loss after a second step, within stated tolerances;
+7. timings (CUDA events) of each kernel, its plain version and the
    PyTorch library call that computes the same function, beside the
-   kernel's least possible time on the card.
+   kernel's least possible time on the card; the train step's device time
+   against its wall, and its kernels by name (torch.profiler).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -40,7 +50,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._kernels import build
-from ray_tpu_torch.models import TransformerConfig, init_params
+from ray_tpu_torch.models import (
+    TransformerConfig, init_params, make_train_step, named_leaves,
+    to_compute,
+)
 from ray_tpu_torch.models import engine as engine_mod
 from ray_tpu_torch.ops import attention, fused
 from ray_tpu_torch.serve import LMBackend, ServeRequest
@@ -49,6 +62,8 @@ from ray_tpu_torch.serve import LMBackend, ServeRequest
 FLAGSHIP = dict(vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16,
                 n_kv_heads=16, d_ff=4096, max_seq_len=2048)
 SLOTS, MAX_SEQ, NEW_TOKENS = 8, 2048, 32
+# The train step of scripts/model_bench.py's bench_config: batch 8, seq 2048.
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 5
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet), for the least-time bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -58,6 +73,27 @@ EPS = 1e-5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# Every kernel wrapper's launch counter, by the kernel's name in the
+# {"kernels": [...]} line.
+COUNTED = {
+    "rms_norm": fused.rms_norm,
+    "decode_attention": attention.decode_attention,
+    "softmax_xent": fused.softmax_cross_entropy,
+    "flash_forward": attention.flash_forward,
+    "flash_backward_dq": attention.flash_backward_dq,
+    "flash_backward_dkv": attention.flash_backward_dkv,
+}
+
+
+def reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def card_line() -> str:
@@ -83,7 +119,11 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, *,
         raise AssertionError(f"{name}: kernel output is not finite")
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol, msg=lambda m: f"{name}: {m}")
-    log(f"  {name}: max_abs_err {err:.3e} (atol {atol}, rtol {rtol}) ok")
+    # The least atol that would pass beside this rtol: the margin left.
+    need = ((got.float() - want.float()).abs()
+            - rtol * want.float().abs()).clamp_min(0).max().item()
+    log(f"  {name}: max_abs_err {err:.3e}, needs atol {need:.3e} at rtol "
+        f"{rtol} (atol {atol}) ok")
     return err
 
 
@@ -155,19 +195,28 @@ def check_kernels() -> dict:
     two differ only in summation order. bf16: atol = rtol = 2e-2, since the
     plain versions round intermediates (x*inv; scores and probabilities)
     to bf16 and the kernels do not."""
-    errs = {}
+    errs = {"rms_norm": 0.0}
     log("phase 2: kernels vs plain PyTorch on the card")
-    for rows in (8, 64, 2048):
+    # RMSNorm at the serving rows (a decode tick's 8, the prefill buckets
+    # 64 and 2048), the train step's B*T rows, and the [B, T, E] input the
+    # train forward passes it, requiring grad; its recorded error is the
+    # largest over these shapes in bf16.
+    E = FLAGSHIP["d_model"]
+    for shape in ((8, E), (64, E), (2048, E), (TRAIN_B * TRAIN_T, E),
+                  (TRAIN_B, TRAIN_T, E)):
+        rows = math.prod(shape[:-1])
         for dtype in (torch.float32, torch.bfloat16):
-            x, w = rms_inputs(rows, dtype, seed=rows)
+            x, w = rms_inputs(rows, dtype, seed=rows + len(shape) - 2)
+            x = x.reshape(shape).requires_grad_(len(shape) == 3)
             tol = (dict(atol=1e-6, rtol=1e-5) if dtype == torch.float32
                    else dict(atol=2e-2, rtol=2e-2))
             err = check_close(
-                f"rms_norm [{rows}, 1024] {str(dtype)[6:]}",
-                fused.rms_norm(x, w, EPS),
-                fused._rms_norm_ref(x, w, EPS), **tol)
-            if rows == 8 and dtype == torch.bfloat16:
-                errs["rms_norm"] = err
+                f"rms_norm {list(shape)} {str(dtype)[6:]}",
+                fused.rms_norm(x, w, EPS).detach(),
+                fused._rms_norm_ref(x, w, EPS).detach(), **tol)
+            if dtype == torch.bfloat16:
+                errs["rms_norm"] = max(errs["rms_norm"], err)
+            del x, w
     # Flagship decode shape (G=1, D=64) with lengths at 0, mid-tile, a tile
     # edge and S-1; a GQA shape (G=8, D=128).
     flag_lens = [0, 31, 63, 64, 100, 1000, 2046, 2047]
@@ -189,7 +238,96 @@ def check_kernels() -> dict:
     return errs
 
 
-# ----------------------------------------------- phase 3: the main path
+def flash_inputs(B, T, H, KH, D, dtype, seed: int):
+    g = cuda_gen(seed)
+    q = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, T, KH, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, T, KH, D, generator=g, device="cuda").to(dtype)
+    do = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def xent_inputs(N, V, dtype, seed: int):
+    g = cuda_gen(seed)
+    logits = 3 * torch.randn(N, V, generator=g, device="cuda")
+    labels = torch.randint(0, V, (N,), generator=g, device="cuda")
+    return logits.to(dtype), labels
+
+
+FLASH_SHAPES = (   # (tag, B, T = S, H, KH, D, causal)
+    ("train", TRAIN_B, TRAIN_T, FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"],
+     FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], True),
+    ("gqa", 2, 1024, 32, 4, 128, True),
+    ("ragged", 2, 1000, 8, 2, 64, False),
+)
+
+
+def check_train_kernels() -> dict:
+    """K2-K5 against their plain versions on the same CUDA tensors.
+    K2 (f32 losses of 10-40): atol 1e-4, rtol 1e-5, the two differ in
+    summation order and the kernel's online rescaling of the sum. K3-K5 in
+    f32: out within atol 1e-5, rtol 1e-5 and lse within 1e-5 (summation
+    order; the kernel's softmax is online, the plain one takes the final
+    max); dq, dk, dv within atol 1e-4, rtol 1e-4 (sums of up to 2048 x G
+    terms in another order). In bf16: lse as in f32 (it is an f32 sum of
+    unrounded exponentials in both); out within atol = rtol = 2e-2, since
+    the kernel rounds p to bf16 against a running max and the plain version
+    against the final one (on an H100 80GB HBM3 at 700 W the largest error
+    read 3.9e-3 on |out| up to 3.9, and needed atol 1.2e-3 beside rtol
+    2e-2); dq, dk, dv within one bf16 ulp, rtol 2^-7, and atol 1e-5 for
+    f32 sums in another order that round to either side of a bf16 value
+    near 0 (the same run needed at most 2.6e-6 beside rtol 2^-7)."""
+    errs = {}
+    log("phase 2: training kernels vs plain PyTorch on the card")
+    for N, V in ((TRAIN_B * TRAIN_T, FLAGSHIP["vocab_size"]), (1000, 32001)):
+        logits, labels = xent_inputs(N, V, torch.float32, seed=N)
+        err = check_close(f"softmax_xent [{N}, {V}] f32",
+                          fused.softmax_cross_entropy(logits, labels),
+                          fused._xent_ref(logits, labels), atol=1e-4,
+                          rtol=1e-5)
+        errs.setdefault("softmax_xent", err)
+        del logits, labels
+    for tag, B, T, H, KH, D, causal in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            q, k, v, do = flash_inputs(B, T, H, KH, D, dtype, seed=T + D)
+            what = (f"{tag} B={B} T=S={T} H={H} KH={KH} D={D} "
+                    f"{'causal' if causal else 'full'} {str(dtype)[6:]}")
+            out, lse = attention.flash_forward(q, k, v, causal)
+            ref_out, ref_lse = attention._flash_forward_ref(q, k, v, causal)
+            e_out = check_close(f"flash_forward out {what}", out, ref_out,
+                                **(dict(atol=1e-5, rtol=1e-5) if f32
+                                   else dict(atol=2e-2, rtol=2e-2)))
+            check_close(f"flash_forward lse {what}", lse, ref_lse,
+                        atol=1e-5, rtol=1e-6)
+            dsum = attention._flash_dsum(ref_out, do)
+            tol = (dict(atol=1e-4, rtol=1e-4) if f32
+                   else dict(atol=1e-5, rtol=2 ** -7))
+            e_dq = check_close(
+                f"flash_backward_dq {what}",
+                attention.flash_backward_dq(q, k, v, do, ref_lse, dsum,
+                                            causal),
+                attention._flash_backward_dq_ref(q, k, v, do, ref_lse, dsum,
+                                                 causal), **tol)
+            dk, dv = attention.flash_backward_dkv(q, k, v, do, ref_lse, dsum,
+                                                  causal)
+            ref_dk, ref_dv = attention._flash_backward_dkv_ref(
+                q, k, v, do, ref_lse, dsum, causal)
+            e_dkv = max(check_close(f"flash_backward_dkv dk {what}", dk,
+                                    ref_dk, **tol),
+                        check_close(f"flash_backward_dkv dv {what}", dv,
+                                    ref_dv, **tol))
+            if tag == "train" and not f32:
+                errs.update(flash_forward=e_out, flash_backward_dq=e_dq,
+                            flash_backward_dkv=e_dkv)
+            del q, k, v, do, out, lse, ref_out, ref_lse, dsum, dk, dv, \
+                ref_dk, ref_dv
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs
+
+
+# -------------------------------------------- phase 3: the serving path
 
 
 class PathProbe:
@@ -237,8 +375,8 @@ def stream_all(backend, prompt, n):
 
 
 def main_path(params, cfg) -> dict:
-    log("phase 3: LMBackend at the flagship config, bf16, 8 slots, "
-        "max_seq 2048")
+    log("phase 3: serving path, LMBackend at the flagship config, bf16, "
+        "8 slots, max_seq 2048")
     backend = LMBackend(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
                         device="cuda")
     V = cfg.vocab_size
@@ -249,8 +387,7 @@ def main_path(params, cfg) -> dict:
     rng = np.random.default_rng(SEED)
     lens = [17, 20, 24, 29, 32, 33, 40, 47, 52, 58, 61, 64]   # buckets 32, 64
     prompts = [rng.integers(0, V, T0).tolist() for T0 in lens]
-    fused.rms_norm.launches = 0
-    attention.decode_attention.launches = 0
+    reset_counts()
 
     t0 = time.perf_counter()
     outs = backend([ServeRequest((p,), {"max_new_tokens": NEW_TOKENS})
@@ -261,8 +398,7 @@ def main_path(params, cfg) -> dict:
     s2 = backend([ServeRequest((prompts[3],), sample_kw)])[0]
     streamed = stream_all(backend, prompts[0], NEW_TOKENS)
 
-    launches = {"rms_norm": fused.rms_norm.launches,
-                "decode_attention": attention.decode_attention.launches}
+    launches = read_counts()
     n_pre, n_tick = len(probe.prefills), len(probe.ticks)
     log(f"  12 greedy requests x {NEW_TOKENS} tokens in {batch_s:.3f} s; "
         f"{n_pre} prefills, {n_tick} decode ticks on the whole path")
@@ -288,6 +424,9 @@ def main_path(params, cfg) -> dict:
             raise AssertionError(
                 f"{name}: {launches[name]} launches on the main path, "
                 f"expected {want[name]}")
+    stray = {n: c for n, c in launches.items() if n not in want and c}
+    if stray:
+        raise AssertionError(f"training kernels ran while serving: {stray}")
     return {"launches": launches, "probe": probe, "backend": backend}
 
 
@@ -298,9 +437,7 @@ def card_vs_cpu(params) -> float:
     log("phase 4: f32 at full width, card vs CPU, teacher-forced 3 prompts "
         "x 16 steps (atol 1e-3)")
     cfg = TransformerConfig(dtype=torch.float32, **FLAGSHIP)
-    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
-                      if isinstance(v, dict) else v.cpu())
-                  for k, v in params.items()}
+    cpu_params = to_compute(params, cfg, "cpu")
     engines = [engine_mod.GenerationEngine(params, cfg, max_slots=SLOTS,
                                            max_seq=MAX_SEQ, device="cuda"),
                engine_mod.GenerationEngine(cpu_params, cfg, max_slots=SLOTS,
@@ -350,11 +487,128 @@ def card_vs_cpu(params) -> float:
     return worst
 
 
-# ----------------------------------------------------- phase 5: timings
+# ------------------------------------------------ phase 5: the train path
+
+
+def train_setup():
+    """The flagship in bf16 with f32 params from the seed, its AdamW state
+    and one seeded batch of B x (T + 1) tokens, on the card."""
+    cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
+    params = init_params(cuda_gen(SEED), cfg, device="cuda")
+    init_opt, train_step = make_train_step(cfg)
+    rng = np.random.default_rng(SEED + 2)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1))).to("cuda")}
+    return cfg, params, init_opt(params), train_step, batch
+
+
+def train_path(card: str) -> dict:
+    log(f"phase 5: training path, {TRAIN_STEPS} train steps at the flagship "
+        f"config, bf16, batch {TRAIN_B}, seq {TRAIN_T}, AdamW")
+    cfg, params, opt, train_step, batch = train_setup()
+    V, L = cfg.vocab_size, cfg.n_layers
+    per_step = {"rms_norm": 2 * L + 1, "softmax_xent": 1,
+                "flash_forward": L, "flash_backward_dq": L,
+                "flash_backward_dkv": L}
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    seen = read_counts()
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = train_step(params, opt, batch)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        now = read_counts()
+        got = {n: now[n] - seen[n] for n in now}
+        seen = now
+        want = {n: per_step.get(n, 0) for n in now}
+        if got != want:
+            raise AssertionError(f"train step {step}: launches {got}, "
+                                 f"expected {want}")
+        log(f"  step {step}: loss {losses[-1]:.6f}, {walls[-1]:.3f} ms wall, "
+            f"launches {got}")
+    launches = read_counts()
+    ln_v = math.log(V)
+    if not (math.isfinite(losses[0]) and abs(losses[0] - ln_v) < 1.0):
+        raise AssertionError(f"step-0 loss {losses[0]} is not within 1.0 "
+                             f"of ln({V}) = {ln_v:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    step_ms = float(np.median(walls))
+    tokens = TRAIN_B * TRAIN_T
+    log(f"  losses {losses} (ln {V} = {ln_v:.4f}); launches over the run "
+        f"{launches}")
+    log(f"  train step: median {step_ms:.3f} ms wall over {TRAIN_STEPS} "
+        f"steps (first {walls[0]:.3f} ms), {tokens / step_ms * 1e3:.1f} "
+        f"tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "walls": walls}
+
+
+# ------------------------------ phase 6: train step, card vs CPU, f32
+
+
+def train_card_vs_cpu() -> dict:
+    """One f32 train step at full width and depth (batch 1, seq 256) from
+    the same weights on the card and on the CPU. Tolerances: the loss
+    within 1e-4; each gradient within 1e-3 of its own largest magnitude
+    (cuBLAS and the CPU's BLAS sum in other orders, as do the kernels and
+    their plain versions, and the differences compound through 8 layers
+    and back); the loss after the first update within 1e-3 (AdamW divides
+    by sqrt(v), so entries whose gradient is near 0 move by a visible
+    fraction of the learning rate when it rounds differently)."""
+    log("phase 6: one f32 train step at full width, batch 1, seq 256, card "
+        "vs CPU")
+    cfg = TransformerConfig(dtype=torch.float32, **FLAGSHIP)
+    cpu = init_params(torch.Generator().manual_seed(SEED + 3), cfg,
+                      device="cpu")
+    gpu = to_compute(cpu, cfg, "cuda")
+    tokens = np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, (1, 257))
+    init_opt, train_step = make_train_step(cfg)
+    runs = []
+    for params in (gpu, cpu):
+        opt = init_opt(params)
+        batch = {"tokens": torch.from_numpy(tokens)}
+        t0 = time.perf_counter()
+        _, _, loss0 = train_step(params, opt, batch)
+        grads = {name: t.grad.float().cpu()
+                 for name, t in named_leaves(params).items()}
+        _, _, loss1 = train_step(params, opt, batch)
+        runs.append((loss0.item(), grads, loss1.item(),
+                     time.perf_counter() - t0))
+    (g0, ggrads, g1, gs), (c0, cgrads, c1, cs) = runs
+    worst = 0.0
+    for name, want in cgrads.items():
+        got = ggrads[name]
+        scale = want.abs().max().item()
+        err = max_err(got, want)
+        if not torch.isfinite(got).all() or err > 1e-3 * scale:
+            raise AssertionError(f"grad {name}: card vs CPU max_abs_err "
+                                 f"{err} above 1e-3 x {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    if abs(g0 - c0) > 1e-4 or not math.isfinite(g0):
+        raise AssertionError(f"loss card {g0} vs CPU {c0}")
+    if abs(g1 - c1) > 1e-3 or not math.isfinite(g1):
+        raise AssertionError(f"loss after a step: card {g1} vs CPU {c1}")
+    log(f"  loss card {g0:.7f} CPU {c0:.7f} (diff {abs(g0 - c0):.2e}); "
+        f"every gradient within {worst:.2e} of its largest magnitude; "
+        f"after one update card {g1:.7f} CPU {c1:.7f} (diff "
+        f"{abs(g1 - c1):.2e}); two steps {gs:.1f} s on the card, {cs:.1f} "
+        f"s on the CPU")
+    return {"loss_diff": abs(g0 - c0), "grad_rel_err": worst,
+            "loss1_diff": abs(g1 - c1)}
+
+
+# ----------------------------------------------------- phase 7: timings
 
 
 def timings(main: dict, card: str) -> dict:
-    log(f"phase 5: timings on {card}")
+    log(f"phase 7: timings on {card}")
     probe = main["probe"]
     out = {}
     by_bucket = {}
@@ -456,6 +710,138 @@ def timings(main: dict, card: str) -> dict:
     return out
 
 
+def train_timings(card: str) -> dict:
+    """K2-K5 at the training path's shapes: the kernel, its plain version
+    and the PyTorch call that computes the same function."""
+    out = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    N, V, E = TRAIN_B * TRAIN_T, FLAGSHIP["vocab_size"], FLAGSHIP["d_model"]
+    sets = [xent_inputs(N, V, f32, seed=400)]
+    out["softmax_xent"] = dict(
+        ms=device_ms("softmax_xent kernel", fused.softmax_cross_entropy,
+                     sets, 20),
+        plain_ms=device_ms("softmax_xent plain", fused._xent_ref, sets, 5),
+        library_ms=device_ms("F.cross_entropy", lambda x, y:
+                             torch.nn.functional.cross_entropy(
+                                 x, y, reduction="none"), sets, 20),
+        **bound(N * V * 4 + N * 8 + N * 4, 4 * N * V, f32),
+        shape=f"[{N}, {V}] f32 logits, int64 labels")
+    del sets
+
+    B, T = TRAIN_B, TRAIN_T
+    H, KH = FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"]
+    D = E // H
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    one = B * T * H * D * 2                  # bytes of one q-shaped tensor
+    kv = B * T * KH * D * 2
+    stat = B * H * T * 4                     # bytes of lse or dsum
+    mm = 2 * B * H * D * (T * (T + 1) // 2)  # one causal product's flops
+    fsets = []
+    for i in range(n_copies(2 * one + 2 * kv)):
+        q, k, v, do = flash_inputs(B, T, H, KH, D, bf16, seed=500 + i)
+        o, lse = attention.flash_forward(q, k, v, True)
+        dsum = attention._flash_dsum(o, do)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True)
+        fsets.append((q, k, v, do, lse, dsum, qt, kt, vt, ot,
+                      do.transpose(1, 2)))
+    lib_bwd = device_ms("SDPA backward", lambda *a: torch.autograd.grad(
+        a[9], (a[6], a[7], a[8]), a[10], retain_graph=True), fsets, 10)
+    shape = f"B={B} T=S={T} H={H} KH={KH} D={D} causal bf16"
+    out["flash_forward"] = dict(
+        ms=device_ms("flash_forward kernel", lambda *a:
+                     attention.flash_forward(*a[:3], True), fsets, 10),
+        plain_ms=device_ms("flash_forward plain", lambda *a:
+                           attention._flash_forward_ref(*a[:3], True),
+                           fsets, 3),
+        library_ms=device_ms("SDPA forward", lambda *a: sdpa(
+            *a[6:9], is_causal=True), fsets, 20),
+        **bound(2 * one + 2 * kv + stat, 2 * mm, bf16), shape=shape)
+    out["flash_backward_dq"] = dict(
+        ms=device_ms("flash_backward_dq kernel", lambda *a:
+                     attention.flash_backward_dq(*a[:6], True), fsets, 10),
+        plain_ms=device_ms("flash_backward_dq plain", lambda *a:
+                           attention._flash_backward_dq_ref(*a[:6], True),
+                           fsets, 3),
+        library_ms=lib_bwd,
+        **bound(3 * one + 2 * kv + 2 * stat, 3 * mm, bf16), shape=shape)
+    out["flash_backward_dkv"] = dict(
+        ms=device_ms("flash_backward_dkv kernel", lambda *a:
+                     attention.flash_backward_dkv(*a[:6], True), fsets, 10),
+        plain_ms=device_ms("flash_backward_dkv plain", lambda *a:
+                           attention._flash_backward_dkv_ref(*a[:6], True),
+                           fsets, 3),
+        library_ms=lib_bwd,
+        **bound(2 * one + 4 * kv + 2 * stat, 4 * mm, bf16), shape=shape)
+    del fsets
+    torch.cuda.empty_cache()
+    for name in ("softmax_xent", "flash_forward", "flash_backward_dq",
+                 "flash_backward_dkv"):
+        t = out[name]
+        log(f"  {name} at {t['shape']}: kernel {t['ms'] * 1e3:.2f} us, "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, library "
+            f"{t['library_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
+    log("  (the library time of both backward kernels is one SDPA backward, "
+        "which computes dq, dk and dv together)")
+    # K1 at the training shape, for the record.
+    sets = [rms_inputs(N, bf16, seed=600)]
+    k1_ms = device_ms("rms_norm kernel [train]",
+                      lambda x, w: fused.rms_norm(x, w, EPS), sets, 50)
+    log(f"  rms_norm at [{N}, {E}] bf16: kernel {k1_ms * 1e3:.2f} us, bound "
+        f"{bound((2 * N * E + E) * 2, 4 * N * E, bf16)['bound_ms'] * 1e3:.3f}"
+        f" us [{card}]")
+    return out
+
+
+def train_breakdown(card: str, step_ms: float) -> None:
+    """Where a flagship train step's device time goes: one step queued
+    behind a sleep (device time back to back, against the median wall of
+    phase 5) and one step under torch.profiler, its kernels summed by
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, params, opt, train_step, batch = train_setup()
+    dev_ms = device_ms("train step", lambda: train_step(params, opt, batch),
+                       [()], 2, sleep_cycles=2_000_000_000)
+    log(f"  train step device time {dev_ms:.3f} ms back to back vs "
+        f"{step_ms:.3f} ms wall: card busy {dev_ms / step_ms:.1%} "
+        f"[{card}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(params, opt, batch)
+        torch.cuda.synchronize()
+    # Device-side events only: a CPU range (an aten op, an autograd node)
+    # also reports the device time of the kernels it launched.
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    if total == 0:
+        log("  torch.profiler recorded no device time: kernel breakdown "
+            "not measured")
+        return
+    groups = {"flash attention K3-K5": ("flash_",),
+              "RMSNorm K1, cross-entropy K2": ("rms_norm_kernel",
+                                               "xent_kernel"),
+              "cuBLAS matmuls": ("nvjet", "gemm", "sm90_", "cutlass"),
+              "memcpy, memset": ("Memcpy", "Memset")}
+    by_group = dict.fromkeys([*groups, "other PyTorch kernels"], 0.0)
+    for name, ms, _ in rows:
+        hit = [g for g, keys in groups.items()
+               if any(k in name for k in keys)]
+        by_group[hit[0] if hit else "other PyTorch kernels"] += ms
+    log(f"  torch.profiler, one train step: {total:.3f} ms of device time "
+        f"in {sum(r[2] for r in rows)} device events [{card}]")
+    for group, ms in by_group.items():
+        log(f"    {ms:9.3f} ms {ms / total:6.1%}  {group}")
+    log("  largest kernels:")
+    for name, ms, count in rows[:12]:
+        log(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {name[:80]}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -480,23 +866,40 @@ def main() -> int:
         log(f"  {name}: nvcc {info['seconds']:.1f} s; " + " | ".join(ptxas))
 
     errs = check_kernels()
+    errs.update(check_train_kernels())
 
     cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
     params = init_params(cuda_gen(SEED), cfg, device="cuda")
     main = main_path(params, cfg)
     card_vs_cpu(params)
+    train = train_path(card)
+    train_card_vs_cpu()
     times = timings(main, card)
+    times.update(train_timings(card))
+    train_breakdown(card, train["step_ms"])
 
-    replaces = {"rms_norm": "ray_tpu/ops/fused.py:40",
-                "decode_attention": "ray_tpu/ops/attention.py:544"}
+    # (kernel, its source, the TPU kernel it replaces, the path it runs on)
+    table = {
+        "rms_norm": ("rms_norm.cu", "ray_tpu/ops/fused.py:40", main),
+        "decode_attention": ("decode_attention.cu",
+                             "ray_tpu/ops/attention.py:544", main),
+        "softmax_xent": ("softmax_xent.cu", "ray_tpu/ops/fused.py:117",
+                         train),
+        "flash_forward": ("flash_attention.cu",
+                          "ray_tpu/ops/attention.py:185", train),
+        "flash_backward_dq": ("flash_attention.cu",
+                              "ray_tpu/ops/attention.py:371", train),
+        "flash_backward_dkv": ("flash_attention.cu",
+                               "ray_tpu/ops/attention.py:393", train),
+    }
     kernels = []
-    for name in ("rms_norm", "decode_attention"):
+    for name, (source, replaces, path) in table.items():
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": main["launches"][name],
+            "source": f"ray_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": path["launches"][name],
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -12,7 +12,9 @@ back to the CPU on their own.
 
 The port grows slice by slice (see ROADMAP.md). Slice 1 is the serving path:
 ``serve.LMBackend`` -> ``models.engine.GenerationEngine`` -> the RMSNorm
-and flash-decode kernels.
+and flash-decode kernels. Slice 2 is the train step:
+``models.make_train_step`` -> ``models.loss_fn`` -> the RMSNorm,
+cross-entropy and flash-attention forward/backward kernels.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` holds one kernel and a plain ``extern "C"``
-launcher, so nvcc compiles it in seconds (no PyTorch headers). The build
+Each ``csrc/<name>.cu`` holds its kernels and plain ``extern "C"``
+launchers, so nvcc compiles it in seconds (no PyTorch headers). The build
 happens at first use, into ``ray_tpu_torch/_build/`` (git-ignored), under a
 name that carries a digest of the sources and flags, so an edited source is
 never served from a stale library. ``build()`` starts one nvcc per stale
@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("rms_norm", "decode_attention")
+KERNELS = ("rms_norm", "decode_attention", "softmax_xent",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

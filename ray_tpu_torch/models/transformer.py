@@ -14,9 +14,9 @@ the JAX weights carry over unchanged (``params_from_numpy``):
 Matrices are kept [in, out] and applied as ``x @ w`` (not transposed to
 ``nn.Linear``'s [out, in]). Parameters are stored in ``param_dtype`` (f32);
 the JAX package casts each weight to the compute dtype ``cfg.dtype`` at
-every use, and the port casts once (``to_compute``), which gives the same
-numbers. The forward pass, loss and train step arrive with the training
-slice; this slice holds what the serving path needs.
+every use. Serving casts once (``to_compute``), which gives the same
+numbers; training (``forward``, ``loss_fn``, ``make_train_step``) casts
+inside autograd, so the gradients reach the f32 parameters.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import Device, default_device
-from ..ops.fused import rms_norm
+from ..ops.attention import flash_attention
+from ..ops.fused import rms_norm, softmax_cross_entropy
 
 Params = Dict[str, Any]
 
@@ -145,3 +146,120 @@ def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
     gate = torch.nn.functional.silu(x @ layer["w_gate"])
     up = x @ layer["w_up"]
     return (gate * up) @ layer["w_down"]
+
+
+# ------------------------------------------------------------- training
+
+
+def _no_parallelism(mesh, num_microbatches: int = 0) -> None:
+    if mesh is not None or num_microbatches > 0:
+        raise NotImplementedError(
+            "a mesh and pipelined microbatches are not ported yet; they come "
+            "with the parallelism slice of ROADMAP.md")
+
+
+def named_leaves(tree: Params, prefix: str = "") -> Dict[str, Any]:
+    """The leaves of a nested dict by dotted name (``"layers.wq"``), in the
+    dict's order; any leaf type, so a gradient tree of numpy arrays walks
+    the same way."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(named_leaves(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def _attention(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of one layer through ``flash_attention``
+    (kernels K3, K4, K5 on the card); ``layer``'s weights are already in the
+    compute dtype."""
+    B, T, _ = x.shape
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _rope((x @ layer["wq"]).reshape(B, T, H, Dh), positions,
+              cfg.rope_theta)
+    k = _rope((x @ layer["wk"]).reshape(B, T, KH, Dh), positions,
+              cfg.rope_theta)
+    v = (x @ layer["wv"]).reshape(B, T, KH, Dh)
+    out = flash_attention(q, k, v, causal=True)
+    return out.reshape(B, T, H * Dh) @ layer["wo"]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V] in ``cfg.dtype``, differentiable
+    in the parameters. The layer loop walks the stacked [L, ...] tensors
+    (JAX's ``scan``) and casts each weight to ``cfg.dtype`` where it is
+    used, inside autograd."""
+    _no_parallelism(mesh)
+    dt = cfg.dtype
+    T = tokens.shape[1]
+    embed = params["embed"].to(dt)
+    x = embed[tokens]                                         # [B, T, E]
+    positions = torch.arange(T, device=x.device)
+    names = list(params["layers"])
+    # unbind: the backward stacks each weight's L gradients in one op.
+    stacks = [params["layers"][k].unbind(0) for k in names]
+    for weights in zip(*stacks):
+        layer = {k: w.to(dt) for k, w in zip(names, weights)}
+        h = x + _attention(_rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                           layer, cfg, positions)
+        x = h + _mlp(_rms_norm(h, layer["mlp_norm"], cfg.norm_eps), layer)
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ embed.T
+
+
+def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
+            mesh=None, *, num_microbatches: int = 0) -> torch.Tensor:
+    """Next-token cross entropy, averaged over B * T; batch =
+    {"tokens": [B, T+1]} (a tensor, or anything ``torch.as_tensor`` takes,
+    moved to the parameters' device). The logits are cast to f32 before
+    ``softmax_cross_entropy`` (kernel K2 on the card)."""
+    _no_parallelism(mesh, num_microbatches)
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inputs, cfg).float()
+    B, T, V = logits.shape
+    losses = softmax_cross_entropy(logits.reshape(B * T, V),
+                                   targets.reshape(B * T))
+    return losses.mean()
+
+
+def make_train_step(cfg: TransformerConfig, mesh=None,
+                    learning_rate: float = 3e-4, num_microbatches: int = 0):
+    """Returns (init_opt, train_step), the JAX package's contract:
+    ``opt_state = init_opt(params)`` and ``params, opt_state, loss =
+    train_step(params, opt_state, batch)``. The optimizer is
+    ``torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8,
+    weight_decay=0.01)`` over every parameter, optax's
+    ``adamw(lr, weight_decay=0.01)``. ``init_opt`` marks the parameters as
+    requiring grad; ``train_step`` updates them in place and returns the
+    same dict, the optimizer, and the loss before the update (detached).
+    The parameters' ``.grad`` hold that step's gradients afterwards."""
+    _no_parallelism(mesh, num_microbatches)
+
+    def init_opt(params: Params) -> torch.optim.AdamW:
+        leaves = list(named_leaves(params).values())
+        for p in leaves:
+            p.requires_grad_(True)
+        return torch.optim.AdamW(leaves, lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.01)
+
+    def train_step(params: Params, opt_state: torch.optim.AdamW,
+                   batch: Dict[str, Any]):
+        group = opt_state.param_groups[0]["params"]
+        leaves = list(named_leaves(params).values())
+        if len(group) != len(leaves) or any(
+                a is not b for a, b in zip(group, leaves)):
+            raise ValueError("opt_state was not made by init_opt(params) for "
+                             "these parameters")
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, batch, cfg)
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return init_opt, train_step

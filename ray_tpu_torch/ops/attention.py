@@ -1,14 +1,18 @@
 """Attention ops (counterpart: ``ray_tpu/ops/attention.py``).
 
-The serving slice needs the plain attention math (``attention_reference``,
-``masked_gqa_attention``) and single-query decode attention.
-``decode_attention`` launches the CUDA kernel ``csrc/decode_attention.cu``
-on CUDA tensors and runs the plain version on CPU tensors; it never falls
-back from the one to the other. Flash attention forward and backward (the
-JAX module's training kernels) arrive with the training slice.
+The plain attention math (``attention_reference``, ``masked_gqa_attention``),
+flash attention for training (``flash_attention``: forward K3, backward K4
+and K5) and single-query decode attention (``decode_attention``, K6).
 
-Layouts follow the JAX package: q [B, T, H, D], caches [B, S, KH, D], and
-query head h = kh * G + g shares kv head kh (G = H // KH).
+Each kernel wrapper (``flash_forward``, ``flash_backward_dq``,
+``flash_backward_dkv``, ``decode_attention``) launches its CUDA kernel
+(``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``) on CUDA tensors
+and runs its plain version on CPU tensors; it never falls back from the one
+to the other, and counts its launches in ``<wrapper>.launches``.
+
+Layouts follow the JAX package: q [B, T, H, D], k/v and caches
+[B, S, KH, D], and query head h = kh * G + g shares kv head kh
+(G = H // KH).
 """
 
 from __future__ import annotations
@@ -24,11 +28,19 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_F = ctypes.c_float
 _SIGNATURES = {
     "decode_attention_forward": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
          ctypes.c_float, _I, _P], _I),
     "decode_attention_smem_bytes": ([_I, _I], _L),
+}
+_FLASH_SIGNATURES = {
+    "flash_forward": ([_P] * 5 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
+    "flash_backward_dq": ([_P] * 7 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
+    "flash_backward_dkv": ([_P] * 8 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
+    "flash_smem_bytes": ([_I, _I], _L),
 }
 
 
@@ -134,6 +146,12 @@ def _check_decode_args(q, k, v, lengths) -> None:
 def _decode_attention_cuda(q, k, v, lengths) -> torch.Tensor:
     from .._kernels.build import load
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # The kernel's output would carry no grad_fn; JAX cannot
+        # differentiate its _flash_decode either.
+        raise RuntimeError(
+            "decode_attention has no backward; call it under "
+            "torch.no_grad() or torch.inference_mode()")
     _check_decode_args(q, k, v, lengths)
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
@@ -167,10 +185,237 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q [B, H, D]; k/v [B, S, KH, D]; lengths [B] int32 -> [B, H, D]. CUDA
     tensors go through the hand-written flash-decode kernel
     (``decode_attention.launches`` counts its launches); CPU tensors
-    through the plain version."""
+    through the plain version. It has no backward: on the card it raises
+    when grad mode is on and an input requires grad."""
     if q.device.type == "cpu":
         return _decode_attention_ref(q, k, v, lengths)
     return _decode_attention_cuda(q, k, v, lengths)
 
 
 decode_attention.launches = 0
+
+
+# ------------------------------------------------------ flash attention
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """f32 scores [B, H, T, S]: f32 dot products of q [B, T, H, D] with k
+    [B, S, KH, D] (repeated to H heads), scaled afterwards, NEG_INF where
+    causal masks (k > q)."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    s = torch.einsum("bthd,bshd->bhts", q.float(),
+                     _repeat_kv(k, H).float()) * D ** -0.5
+    if causal:
+        future = (torch.arange(S, device=q.device)[None, :]
+                  > torch.arange(T, device=q.device)[:, None])
+        s = s.masked_fill(future, NEG_INF)
+    return s
+
+
+def _flash_forward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True):
+    """Plain flash forward: (out [B, T, H, D] in q's dtype, lse [B, H, T]
+    f32), the Pallas kernel's arithmetic in one pass: p rounded to v's
+    dtype for PV, o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))."""
+    H = q.shape[2]
+    s = _scores(q, k, causal)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(-1, keepdim=True).clamp_min(1e-30)            # [B, H, T, 1]
+    acc = torch.einsum("bhts,bshd->bthd", p.to(v.dtype).float(),
+                       _repeat_kv(v, H).float())
+    out = (acc / den.transpose(1, 2)).to(q.dtype)
+    return out, (m + torch.log(den))[..., 0]
+
+
+def _flash_dsum(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(do * out) in f32, [B, H, T]: the backward's one torch op
+    outside the kernels, as in the JAX package."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_probs(q, k, v, do, lse, dsum, causal: bool):
+    """p = exp(s - lse) and ds = p * (dp - dsum) * scale, [B, H, T, S]."""
+    H, D = q.shape[2], q.shape[3]
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    dp = torch.einsum("bthd,bshd->bhts", do.float(),
+                      _repeat_kv(v, H).float())
+    return p, p * (dp - dsum[..., None]) * D ** -0.5
+
+
+def _flash_backward_dq_ref(q, k, v, do, lse, dsum, causal: bool = True):
+    """Plain K4: dq = ds @ k, ds rounded to k's dtype, in q's dtype."""
+    _, ds = _bwd_probs(q, k, v, do, lse, dsum, causal)
+    dq = torch.einsum("bhts,bshd->bthd", ds.to(k.dtype).float(),
+                      _repeat_kv(k, q.shape[2]).float())
+    return dq.to(q.dtype)
+
+
+def _flash_backward_dkv_ref(q, k, v, do, lse, dsum, causal: bool = True):
+    """Plain K5: dv = p^T @ do (p rounded to do's dtype) and dk = ds^T @ q
+    (ds rounded to q's dtype), summed over each group's G query heads in
+    f32, in k's and v's dtypes."""
+    B, S, KH, D = k.shape
+    G = q.shape[2] // KH
+    p, ds = _bwd_probs(q, k, v, do, lse, dsum, causal)
+    dv = torch.einsum("bhts,bthd->bshd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhts,bthd->bshd", ds.to(q.dtype).float(), q.float())
+    dk = dk.reshape(B, S, KH, G, D).sum(3)
+    dv = dv.reshape(B, S, KH, G, D).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_backward_ref(q, k, v, out, lse, do, causal: bool = True):
+    """Plain backward: (dq, dk, dv), P recomputed from lse and
+    dsum = rowsum(do * out)."""
+    dsum = _flash_dsum(out, do)
+    dq = _flash_backward_dq_ref(q, k, v, do, lse, dsum, causal)
+    return (dq, *_flash_backward_dkv_ref(q, k, v, do, lse, dsum, causal))
+
+
+def _check_flash_args(q, k, v, do=None, lse=None, dsum=None) -> None:
+    """Refuse what the flash kernels do not take: shapes and dtypes first,
+    then devices, then layout."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"want q [B, T, H, D] and k/v [B, S, KH, D], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or T == 0 or S == 0 or B == 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if D not in (64, 128):
+        raise ValueError(f"flash attention kernels take D in (64, 128), "
+                         f"got {D}")
+    if KH == 0 or H % KH:
+        raise ValueError(f"n_heads {H} is not a multiple of kv heads {KH}")
+    ts = [q, k, v] + ([do] if do is not None else [])
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(
+            "flash attention kernels take float32 or bfloat16 q/k/v"
+            f"{'/do' if do is not None else ''} of one dtype, got "
+            f"{[str(t.dtype) for t in ts]}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
+    stats = [t for t in (lse, dsum) if t is not None]
+    for t in stats:
+        if (t.dtype != torch.float32 or t.shape != (B, H, T)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"lse/dsum must be contiguous float32 [B, H, T], got "
+                f"{t.dtype} {tuple(t.shape)}")
+    every = ts + stats
+    if not all(t.is_cuda for t in every):
+        raise ValueError(
+            "flash attention kernels take CUDA tensors, got "
+            f"{[str(t.device) for t in every]}")
+    if len({t.device for t in every}) != 1:
+        raise ValueError("flash attention operands lie on different devices")
+    vec = 16 // q.element_size()
+    for t in ts:
+        if t.stride(3) != 1:
+            raise ValueError("q/k/v/do must have a contiguous last axis")
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError("q/k/v/do rows must be 16-byte aligned")
+
+
+def _launch_flash(fn_name: str, which: int, q, k, v, tensors, outputs,
+                  strided, causal: bool) -> None:
+    from .._kernels.build import load
+
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    lib = load("flash_attention", _FLASH_SIGNATURES)
+    smem = lib.flash_smem_bytes(which, D)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{fn_name}: D={D} needs {smem} bytes of shared "
+                         f"memory per block, above the card's {_SMEM_LIMIT}")
+    strides = [st for t in strided for st in t.stride()[:3]]
+    strides = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn_name)(
+            *[t.data_ptr() for t in tensors + outputs], B, T, S, H, KH, D,
+            strides, float(D ** -0.5), int(causal), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True):
+    """(out [B, T, H, D], lse [B, H, T] f32). CUDA tensors go through the
+    hand-written kernel K3 (``flash_forward.launches``); CPU tensors through
+    ``_flash_forward_ref``."""
+    if q.device.type == "cpu":
+        return _flash_forward_ref(q, k, v, causal)
+    _check_flash_args(q, k, v)
+    B, T, H, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    _launch_flash("flash_forward", 0, q, k, v, [q, k, v], [out, lse],
+                  [q, k, v], causal)
+    flash_forward.launches += 1
+    return out, lse
+
+
+def flash_backward_dq(q, k, v, do, lse, dsum, causal: bool = True):
+    """dq [B, T, H, D]. CUDA tensors go through the hand-written kernel K4
+    (``flash_backward_dq.launches``); CPU tensors through
+    ``_flash_backward_dq_ref``."""
+    if q.device.type == "cpu":
+        return _flash_backward_dq_ref(q, k, v, do, lse, dsum, causal)
+    _check_flash_args(q, k, v, do, lse, dsum)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_flash("flash_backward_dq", 1, q, k, v, [q, k, v, do, lse, dsum],
+                  [dq], [q, k, v, do], causal)
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, dsum, causal: bool = True):
+    """(dk, dv) [B, S, KH, D]. CUDA tensors go through the hand-written
+    kernel K5 (``flash_backward_dkv.launches``); CPU tensors through
+    ``_flash_backward_dkv_ref``."""
+    if q.device.type == "cpu":
+        return _flash_backward_dkv_ref(q, k, v, do, lse, dsum, causal)
+    _check_flash_args(q, k, v, do, lse, dsum)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_flash("flash_backward_dkv", 2, q, k, v,
+                  [q, k, v, do, lse, dsum], [dk, dv], [q, k, v, do], causal)
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dsum = _flash_dsum(out, do)
+        dq = flash_backward_dq(q, k, v, do, lse, dsum, ctx.causal)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, dsum, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Flash attention, q [B, T, H, D] against k/v [B, S, KH, D] ->
+    [B, T, H, D], differentiable in q, k and v. On the card the forward is
+    kernel K3 and the backward kernels K4 (dq) and K5 (dk, dv); on the CPU
+    their plain versions. D in (64, 128), any T, S and G = H // KH."""
+    return _FlashAttention.apply(q, k, v, causal)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-edge shapes the serving path's smoke run does not reach (scalar-load path,
-wide rows, odd group sizes, strided cache views), and the engine on the
-card against the engine on the CPU.
+edge shapes the smoke run does not reach (scalar-load path, wide rows, odd
+group sizes, strided cache views, ragged tiles, T != S), gradients through
+the kernels against the same on the CPU, and the engine on the card
+against the engine on the CPU.
 
 Every test needs an NVIDIA card and nvcc and skips without one. On a
 machine with a card (no JAX needed there):
@@ -9,6 +10,7 @@ machine with a card (no JAX needed there):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -107,3 +109,174 @@ def test_engine_on_card_matches_engine_on_cpu_f32(dev):
         res = eng.run_until_done()
         outs.append([res[i] for i in ids])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("N,V,dtype,label_dtype", [
+    (1, 7, torch.float32, torch.int64), (3, 1001, torch.float32, torch.int32),
+    (5, 1001, torch.bfloat16, torch.int64),
+    (9, 4096, torch.bfloat16, torch.int32),
+])
+def test_xent_kernel_matches_plain(dev, N, V, dtype, label_dtype):
+    """f32 losses: atol 1e-5, rtol 1e-5 (summation order); bf16 logits are
+    widened exactly, so the same tolerance holds."""
+    g = _gen(N * V)
+    logits = (4 * torch.randn(N, V, generator=g, device=dev)).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev,
+                           dtype=label_dtype)
+    torch.testing.assert_close(fused.softmax_cross_entropy(logits, labels),
+                               fused._xent_ref(logits, labels), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_xent_kernel_strided_rows_and_out_of_range_label(dev):
+    """Rows of a wider buffer (row stride > V), and a label outside [0, V)
+    picks 0, as the Pallas kernel's one-hot does: the loss is the lse."""
+    buf = torch.randn(4, 300, generator=_gen(7), device=dev)
+    logits = buf[:, :257]
+    labels = torch.tensor([0, 256, -1, 257], device=dev)
+    got = fused.softmax_cross_entropy(logits, labels)
+    lse = torch.logsumexp(logits, -1)
+    torch.testing.assert_close(got[:2], fused._xent_ref(logits[:2],
+                                                        labels[:2]),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[2:], lse[2:], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,S,H,KH,D,causal", [
+    (1, 1, 1, 1, 1, 64, True),           # one row
+    (2, 65, 65, 2, 2, 64, True),         # a tile and one row
+    (1, 100, 100, 6, 2, 128, True),      # G = 3, ragged
+    (2, 50, 70, 4, 1, 64, False),        # T != S, MQA
+    (1, 40, 150, 2, 2, 64, True),        # causal S > T: kv tiles no q sees
+    (1, 64, 64, 16, 1, 128, True),       # MQA, G = 16
+    (1, 130, 130, 8, 8, 128, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(dev, B, T, S, H, KH, D, causal, dtype):
+    """K3-K5 against the plain versions. f32: out/lse atol 1e-5, grads
+    atol 1e-4 (summation order); bf16: atol = rtol = 2e-2 (p rounded to
+    bf16 against a running vs the final max; bf16 outputs)."""
+    g = _gen(T * S + D)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KH, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KH, D, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    f32 = dtype == torch.float32
+    tol = dict(atol=1e-5, rtol=1e-5) if f32 else dict(atol=2e-2, rtol=2e-2)
+    gtol = dict(atol=1e-4, rtol=1e-4) if f32 else tol
+    out, lse = attention.flash_forward(q, k, v, causal)
+    ref_out, ref_lse = attention._flash_forward_ref(q, k, v, causal)
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    dsum = attention._flash_dsum(ref_out, do)
+    torch.testing.assert_close(
+        attention.flash_backward_dq(q, k, v, do, ref_lse, dsum, causal),
+        attention._flash_backward_dq_ref(q, k, v, do, ref_lse, dsum, causal),
+        **gtol)
+    for got, want in zip(
+            attention.flash_backward_dkv(q, k, v, do, ref_lse, dsum, causal),
+            attention._flash_backward_dkv_ref(q, k, v, do, ref_lse, dsum,
+                                              causal)):
+        torch.testing.assert_close(got, want, **gtol)
+
+
+def test_flash_kernels_read_strided_views(dev):
+    """q/k/v as head slices of a fused [B, T, 3, H, D] projection: the
+    kernels read through the strides, no copies."""
+    qkv = torch.randn(2, 80, 3, 4, 64, generator=_gen(3), device=dev)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    out, lse = attention.flash_forward(q, k, v, True)
+    ref_out, ref_lse = attention._flash_forward_ref(q, k, v, True)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+
+
+def _grads_on(device, fn, *arrays):
+    ts = [a.to(device).requires_grad_(a.is_floating_point()) for a in arrays]
+    out = fn(*ts)
+    seed = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    grads = torch.autograd.grad(out, [t for t in ts if t.requires_grad],
+                                seed.to(device))
+    return [out.detach().cpu()] + [t.cpu() for t in grads]
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "softmax_cross_entropy",
+                                "rms_norm"])
+def test_autograd_on_card_matches_cpu_f32(dev, op):
+    """torch.autograd.grad through each differentiable wrapper on the card
+    (kernel forward) and on the CPU (plain forward), f32: outputs and
+    input grads within atol 1e-4, rtol 1e-4 (summation order)."""
+    g = torch.Generator().manual_seed(0)
+    fn, arrays = {
+        "flash_attention": (
+            lambda q, k, v: attention.flash_attention(q, k, v, causal=True),
+            [torch.randn(2, 70, 4, 64, generator=g),
+             torch.randn(2, 70, 2, 64, generator=g),
+             torch.randn(2, 70, 2, 64, generator=g)]),
+        "softmax_cross_entropy": (
+            fused.softmax_cross_entropy,
+            [3 * torch.randn(6, 333, generator=g),
+             torch.randint(0, 333, (6,), generator=g)]),
+        "rms_norm": (
+            lambda x, w: fused.rms_norm(x, w, 1e-5),
+            [torch.randn(3, 5, 96, generator=g),
+             1 + 0.1 * torch.randn(96, generator=g)]),
+    }[op]
+    for got, want in zip(_grads_on(dev, fn, *arrays),
+                         _grads_on("cpu", fn, *arrays)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_rms_norm_on_card_is_differentiable_and_decode_refuses_grad(dev):
+    """The slice-1 fault: rms_norm's kernel output carried no grad_fn on
+    the card. It now does; decode_attention, which has no backward, raises
+    instead of returning a constant."""
+    x = torch.randn(4, 64, device=dev, requires_grad=True)
+    w = torch.ones(64, device=dev, requires_grad=True)
+    y = fused.rms_norm(x, w)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert x.grad is not None and w.grad is not None
+    q = torch.randn(1, 2, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 8, 2, 64, device=dev)
+    lens = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.decode_attention(q, k, k, lens)
+    with torch.no_grad():
+        assert attention.decode_attention(q, k, k, lens).shape == (1, 2, 64)
+
+
+def test_flash_wrappers_raise_on_the_card(dev):
+    q = torch.randn(1, 8, 2, 96, device=dev)
+    with pytest.raises(ValueError, match="D in"):
+        attention.flash_forward(q, q, q)
+    q = torch.randn(1, 8, 2, 64, device=dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        attention.flash_forward(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.flash_forward(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused.softmax_cross_entropy(torch.randn(2, 8, device=dev),
+                                    torch.zeros(2, dtype=torch.long))
+
+
+def test_train_step_on_card_matches_cpu_small_f32(dev):
+    """Three make_train_step steps of a small GQA config on the card and on
+    the CPU from the same weights, f32: losses within 1e-5."""
+    from ray_tpu_torch.models import (TransformerConfig, init_params,
+                                      make_train_step)
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=4, n_kv_heads=2, d_ff=512,
+                            max_seq_len=128, dtype=torch.float32)
+    tokens = torch.randint(0, 512, (2, 97),
+                           generator=torch.Generator().manual_seed(2))
+    losses = []
+    for device in ("cpu", "cuda"):
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             device=device)
+        init_opt, step = make_train_step(cfg)
+        opt = init_opt(params)
+        losses.append([step(params, opt, {"tokens": tokens})[2].item()
+                       for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=0)

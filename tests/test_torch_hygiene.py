@@ -144,3 +144,99 @@ def test_kernel_sources_exist_and_library_names_track_them():
         assert 'extern "C"' in src.read_text()
         assert build.lib_path(name).parent == build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+_META = dict(device="meta")
+
+
+def _flash_meta(D=64, dtype=torch.float32, kv_dtype=None, kv_device="meta"):
+    q = torch.ones(1, 4, 2, D, dtype=dtype, **_META)
+    k = torch.ones(1, 4, 2, D, dtype=kv_dtype or dtype, device=kv_device)
+    stats = torch.ones(1, 2, 4, **_META)
+    return q, k, k, q, stats, stats
+
+
+_FLASH_WRAPPERS = {
+    "flash_forward": lambda q, k, v, do, lse, dsum: attention.flash_forward(
+        q, k, v),
+    "flash_backward_dq": lambda *a: attention.flash_backward_dq(*a),
+    "flash_backward_dkv": lambda *a: attention.flash_backward_dkv(*a),
+}
+_COUNTERS = (fused.rms_norm, fused.softmax_cross_entropy,
+             attention.flash_forward, attention.flash_backward_dq,
+             attention.flash_backward_dkv, attention.decode_attention)
+
+
+@pytest.mark.parametrize("case", [
+    "not_cuda", "cpu_operand", "d96", "mixed_dtypes", "float16"])
+@pytest.mark.parametrize("name", sorted(_FLASH_WRAPPERS))
+def test_flash_kernel_wrappers_refuse_what_they_do_not_take(name, case):
+    """Off the CPU, each flash wrapper takes its kernel or raises: a tensor
+    off the card, a CPU operand beside a non-CPU one, a head dim outside
+    {64, 128}, or dtypes the kernels do not take are refused, never handed
+    to the plain version, and nothing is counted."""
+    args, err, match = {
+        "not_cuda": (_flash_meta(), ValueError, "CUDA tensors"),
+        "cpu_operand": (_flash_meta(kv_device="cpu"), ValueError,
+                        "CUDA tensors"),
+        "d96": (_flash_meta(D=96), ValueError, "D in"),
+        "mixed_dtypes": (_flash_meta(kv_dtype=torch.bfloat16), TypeError,
+                         "one dtype"),
+        "float16": (_flash_meta(dtype=torch.float16), TypeError,
+                    "one dtype"),
+    }[case]
+    before = [f.launches for f in _COUNTERS]
+    with pytest.raises(err, match=match):
+        _FLASH_WRAPPERS[name](*args)
+    assert [f.launches for f in _COUNTERS] == before
+
+
+def test_flash_attention_autograd_refuses_off_the_cpu():
+    q, k, v, _, _, _ = _flash_meta(D=128, kv_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        attention.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("case", ["not_cuda", "cpu_operand", "float16",
+                                  "float_labels", "bad_shape"])
+def test_xent_kernel_wrapper_refuses_what_it_does_not_take(case):
+    logits = torch.ones(4, 32, **_META)
+    labels = torch.zeros(4, dtype=torch.long, **_META)
+    args, err, match = {
+        "not_cuda": ((logits, labels), ValueError, "CUDA tensors"),
+        "cpu_operand": ((logits, torch.zeros(4, dtype=torch.long)),
+                        ValueError, "CUDA tensors"),
+        "float16": ((logits.half(), labels), TypeError, "float32 or"),
+        "float_labels": ((logits, labels.float()), TypeError, "int32 or"),
+        "bad_shape": ((logits[None], labels), ValueError, "want logits"),
+    }[case]
+    before = [f.launches for f in _COUNTERS]
+    with pytest.raises(err, match=match):
+        fused.softmax_cross_entropy(*args)
+    with pytest.raises(err, match=match):
+        fused._xent_cuda(*args)
+    assert [f.launches for f in _COUNTERS] == before
+
+
+def test_cuda_routes_refuse_cpu_tensors():
+    """The CUDA route of each wrapper, handed CPU tensors, raises rather
+    than computing on them."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused._xent_cuda(torch.ones(2, 8), torch.zeros(2, dtype=torch.long))
+    q = torch.ones(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention._check_flash_args(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused._rms_norm_cuda(torch.ones(2, 8), torch.ones(8), 1e-5)
+
+
+def test_train_step_runs_where_the_parameters_lie():
+    """make_train_step takes no device: it runs where the parameters lie,
+    which init_params places on the card unless told otherwise."""
+    cfg = _tiny()
+    init_opt, train_step = transformer.make_train_step(cfg)
+    params = _cpu_params()
+    opt = init_opt(params)
+    _, _, loss = train_step(params, opt, {"tokens": np.ones((1, 5),
+                                                           np.int64)})
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
