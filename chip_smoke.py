@@ -11,16 +11,24 @@ it fails:
    every kernel of both paths from ray_tpu_torch/csrc into
    ray_tpu_torch/_build (one nvcc per source, all at once);
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the serving and training paths give it (and GQA and ragged
-   shapes), in f32 and bf16;
+   shapes the serving and training paths give it (and GQA, ragged and
+   small-page shapes), in f32 and bf16;
 3. the serving path at the flagship config's full width (vocab 32000,
    d_model 1024, 8 layers, 16 heads, bf16, 8 slots, max_seq 2048, random
    weights from a seed): one batched LMBackend call of 12 greedy requests,
    one seeded sampled request twice, one streamed request; every launch
    counter is set to 0 just before and read just after, and must show the
    path went through each kernel as often as its structure says;
+3b. the paged serving path, LMBackend(paged=True) at the same config (page
+   size 128), counters set to 0 before and read after: 16 greedy requests
+   sharing a 512-token prefix, on the default pool and on a tight one that
+   queues admission, one 1,536-token prompt through chunked prefill, one
+   seeded sampled request twice and one streamed request; greedy outputs
+   must equal the contiguous engine's, and every decode tick must launch
+   exactly 8 paged-decode, 0 decode and 17 RMSNorm kernels;
 4. the same weights in f32 on the card and on the CPU, teacher-forced
-   through 3 prompts for 16 decode steps: logits within atol 1e-3;
+   through 3 prompts for 16 decode steps, through the contiguous and the
+   paged engine: logits within atol 1e-3;
 5. the training path at the same config (bf16 compute, f32 params, AdamW):
    5 train steps at batch 8, seq 2048 on one seeded batch; the counters are
    set to 0 just before and read after every step, which must show 2L+1
@@ -31,8 +39,10 @@ it fails:
    and the loss after a second step, within stated tolerances;
 7. timings (CUDA events) of each kernel, its plain version and the
    PyTorch library call that computes the same function, beside the
-   kernel's least possible time on the card; the train step's device time
-   against its wall, and its kernels by name (torch.profiler).
+   kernel's least possible time on the card (the paged kernel also beside
+   the contiguous one on the same rows); the paged decode tick against the
+   contiguous one; the train step's device time against its wall, and its
+   kernels by name (torch.profiler).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -55,13 +65,19 @@ from ray_tpu_torch.models import (
     to_compute,
 )
 from ray_tpu_torch.models import engine as engine_mod
-from ray_tpu_torch.ops import attention, fused
+from ray_tpu_torch.models import paged_engine as paged_mod
+from ray_tpu_torch.ops import attention, fused, paged_attention
 from ray_tpu_torch.serve import LMBackend, ServeRequest
 
 # Flagship config (scripts/model_bench.py's decode benchmark) and engine.
 FLAGSHIP = dict(vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16,
                 n_kv_heads=16, d_ff=4096, max_seq_len=2048)
 SLOTS, MAX_SEQ, NEW_TOKENS = 8, 2048, 32
+# The paged engine: the JAX package's default page size; a 512-token shared
+# prefix (4 full pages); a pool of 17 pages (the scratch page and one
+# max_seq sequence), on which that traffic queues for pages; the chunked
+# prefill of one long prompt.
+PAGE, PREFIX, TIGHT_PAGES, CHUNK, LONG_PROMPT = 128, 512, 17, 256, 1536
 # The train step of scripts/model_bench.py's bench_config: batch 8, seq 2048.
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 5
 SEED = 0
@@ -84,6 +100,7 @@ COUNTED = {
     "flash_forward": attention.flash_forward,
     "flash_backward_dq": attention.flash_backward_dq,
     "flash_backward_dkv": attention.flash_backward_dkv,
+    "paged_decode_attention": paged_attention.paged_decode_attention,
 }
 
 
@@ -238,6 +255,72 @@ def check_kernels() -> dict:
     return errs
 
 
+def paged_inputs(B, H, KH, D, ps, P, lengths, dtype, seed: int):
+    """A pool of B * P pages past the scratch page 0, handed to the
+    sequences in shuffled order; tables -1 padded past each sequence's
+    pages. The last sequence is idle (length 0, a table of -1)."""
+    g = cuda_gen(seed)
+    num_pages = B * P + 1
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    kp = torch.randn(num_pages, ps, KH, D, generator=g,
+                     device="cuda").to(dtype)
+    vp = torch.randn(num_pages, ps, KH, D, generator=g,
+                     device="cuda").to(dtype)
+    ids = np.random.default_rng(seed).permutation(B * P) + 1
+    table = np.full((B, P), -1, np.int32)
+    for b, L in enumerate(lengths[:-1]):
+        used = -(-(L + 1) // ps)
+        table[b, :used] = ids[b * P:b * P + used]
+    lens = list(lengths[:-1]) + [0]
+    return (q, kp, vp, torch.tensor(table, device="cuda"),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+PAGED_SHAPES = (   # (tag, B, H, KH, D, page size, P, lengths; last idle)
+    ("flagship", SLOTS, FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"],
+     FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], PAGE, MAX_SEQ // PAGE,
+     [0, 127, 128, 600, 2047, 1000, 64, 0]),
+    ("gqa", 5, 32, 4, 128, 64, 16, [0, 63, 500, 1023, 0]),
+    ("small page", 4, 8, 2, 64, 16, 16, [80, 127, 250, 0]),
+)
+
+
+def check_paged_kernel() -> dict:
+    """K7 against its plain version on the same CUDA tensors, with shuffled
+    physical pages, -1 padded tables and an idle row: f32 atol 2e-5 (the
+    two differ only in summation order), bf16 atol = rtol = 2e-2 (the
+    plain version rounds scores and probabilities to bf16). And K7 against
+    K6 on the same rows gathered into a contiguous cache: equal bit for
+    bit, since both walk K6's tiles with K6's arithmetic."""
+    errs = {}
+    log("phase 2: paged decode kernel vs plain PyTorch on the card")
+    for tag, B, H, KH, D, ps, P, lens in PAGED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, table, ln = paged_inputs(B, H, KH, D, ps, P, lens,
+                                                dtype, seed=D + ps)
+            what = (f"paged_decode_attention {tag} B={B} H={H} KH={KH} "
+                    f"D={D} ps={ps} P={P} {str(dtype)[6:]}")
+            got = paged_attention.paged_decode_attention(q, kp, vp, table,
+                                                         ln)
+            tol = (dict(atol=2e-5, rtol=0.0) if dtype == torch.float32
+                   else dict(atol=2e-2, rtol=2e-2))
+            err = check_close(
+                what, got, paged_attention._paged_decode_ref(
+                    q, kp, vp, table, ln), **tol)
+            k6 = attention.decode_attention(
+                q, paged_attention.paged_gather(kp, table).contiguous(),
+                paged_attention.paged_gather(vp, table).contiguous(), ln)
+            if not torch.equal(got, k6):
+                raise AssertionError(
+                    f"{what}: differs from K6 on the same rows by "
+                    f"{max_err(got, k6):.3e}")
+            if tag == "flagship" and dtype == torch.bfloat16:
+                errs["paged_decode_attention"] = err
+    log("  every paged check equals K6 on the same rows, bit for bit")
+    torch.cuda.synchronize()
+    return errs
+
+
 def flash_inputs(B, T, H, KH, D, dtype, seed: int):
     g = cuda_gen(seed)
     q = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
@@ -330,14 +413,20 @@ def check_train_kernels() -> dict:
 # -------------------------------------------- phase 3: the serving path
 
 
+def count_delta(before: dict) -> dict:
+    return {n: c - before[n] for n, c in read_counts().items()}
+
+
 class PathProbe:
     """Counts and times the engine's prefills and decode ticks (host clock
-    around work that ends in a synchronize), and keeps each tick's slot
-    lengths so the kernels can be timed on this run's data."""
+    around work that ends in a synchronize), keeps each tick's slot lengths
+    so the kernels can be timed on this run's data, and the kernel launches
+    of each prefill and each tick."""
 
     def __init__(self, eng):
         self.prefills, self.ticks = [], []
         self.tick_lengths = []
+        self.prefill_launches, self.tick_launches = [], []
         self._prefill, self._decode = eng._prefill_slot, eng._decode_all
         eng._prefill_slot, eng._decode_all = self.prefill, self.decode
         self.eng = eng
@@ -345,22 +434,56 @@ class PathProbe:
     def prefill(self, slot, req):
         T0 = len(req.prompt)
         torch.cuda.synchronize()
+        before = read_counts()
         t0 = time.perf_counter()
         done = self._prefill(slot, req)
         torch.cuda.synchronize()
         bucket = min(1 << (T0 - 1).bit_length(), self.eng.max_seq)
         self.prefills.append((bucket, (time.perf_counter() - t0) * 1e3))
+        self.prefill_launches.append(count_delta(before))
         return done
 
     def decode(self):
         active = sum(r is not None for r in self.eng.active)
         self.tick_lengths.append((active, self.eng.lengths.copy()))
         torch.cuda.synchronize()
+        before = read_counts()
         t0 = time.perf_counter()
         logits = self._decode()
         torch.cuda.synchronize()
         self.ticks.append((active, (time.perf_counter() - t0) * 1e3))
+        self.tick_launches.append(count_delta(before))
         return logits
+
+
+class PagedProbe(PathProbe):
+    """PathProbe for the paged engine: also keeps each tick's page tables,
+    the pages two or more active slots read, the pages each active slot
+    reads through K7, and how often the page budget refused the queue head
+    while a slot was free."""
+
+    def __init__(self, eng):
+        super().__init__(eng)
+        self.tables, self.shared, self.pages_read = [], [], []
+        self.refusals = 0
+        self._can_admit = eng._can_admit
+        eng._can_admit = self.can_admit
+
+    def can_admit(self, req) -> bool:
+        ok = self._can_admit(req)
+        if not ok and any(r is None for r in self.eng.active):
+            self.refusals += 1
+        return ok
+
+    def decode(self):
+        eng = self.eng
+        self.tables.append(eng._tables.copy())
+        live = [s for s, r in enumerate(eng.active) if r is not None]
+        pages = [int(pg) for s in live for pg in eng._tables[s] if pg >= 0]
+        self.shared.append(len({pg for pg in pages if pages.count(pg) > 1}))
+        self.pages_read.append([int(eng.lengths[s]) // eng.page_size + 1
+                                for s in live])
+        return super().decode()
 
 
 def stream_all(backend, prompt, n):
@@ -430,18 +553,162 @@ def main_path(params, cfg) -> dict:
     return {"launches": launches, "probe": probe, "backend": backend}
 
 
+# --------------------------------- phase 3b: the paged serving path
+
+
+def check_paged_launches(probes, L: int) -> dict:
+    """Every paged decode tick launches exactly L paged-decode, 0 decode
+    and 2L+1 RMSNorm kernels and nothing else; every prefill launches
+    RMSNorm 2L+1 times per forward (once, or once per chunk run) and no
+    attention kernel. Returns the totals they add up to."""
+    per_tick = {n: 0 for n in COUNTED}
+    per_tick.update(rms_norm=2 * L + 1, paged_decode_attention=L)
+    total = {n: 0 for n in COUNTED}
+    for probe in probes:
+        for i, got in enumerate(probe.tick_launches):
+            if got != per_tick:
+                raise AssertionError(f"paged tick {i}: launches {got}, "
+                                     f"expected {per_tick}")
+        for i, got in enumerate(probe.prefill_launches):
+            rms = got["rms_norm"]
+            if (rms == 0 or rms % (2 * L + 1)
+                    or any(c for n, c in got.items() if n != "rms_norm")):
+                raise AssertionError(f"paged prefill {i}: launches {got}")
+        for got in probe.tick_launches + probe.prefill_launches:
+            for n, c in got.items():
+                total[n] += c
+    return total
+
+
+def paged_path(params, cfg) -> dict:
+    """LMBackend(paged=True) at the flagship config, against LMBackend
+    over the contiguous engine on the same requests. The contiguous runs
+    come first, outside the counted window."""
+    log(f"phase 3b: paged serving path, LMBackend(paged=True) at the "
+        f"flagship config, bf16, {SLOTS} slots, max_seq {MAX_SEQ}, page "
+        f"size {PAGE}")
+    V, L = cfg.vocab_size, cfg.n_layers
+    rng = np.random.default_rng(SEED + 5)
+    prefix = rng.integers(0, V, PREFIX).tolist()
+    suffixes = rng.permutation(np.arange(8, 201))[:16]
+    shared = [prefix + rng.integers(0, V, int(n)).tolist() for n in suffixes]
+    long_prompt = rng.integers(0, V, LONG_PROMPT).tolist()
+
+    def served(backend, prompts, n):
+        return backend([ServeRequest((p,), {"max_new_tokens": n})
+                        for p in prompts])
+
+    contig = LMBackend(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                       device="cuda")
+    contig_probe = PathProbe(contig.engine)
+    want_shared = served(contig, shared, NEW_TOKENS)
+    want_long = served(LMBackend(params, cfg, max_slots=SLOTS,
+                                 max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                                 device="cuda"), [long_prompt], 64)[0]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    # (a) 16 greedy requests sharing a 4-page prefix, on the default pool.
+    backend = LMBackend(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                        paged=True, page_size=PAGE, device="cuda")
+    probe_a = PagedProbe(backend.engine)
+    outs = served(backend, shared, NEW_TOKENS)
+    # (d) one seeded sampled request twice, one streamed request.
+    sample_kw = {"max_new_tokens": 16, "temperature": 0.8, "seed": 42}
+    s1 = backend([ServeRequest((shared[0],), sample_kw)])[0]
+    s2 = backend([ServeRequest((shared[0],), sample_kw)])[0]
+    streamed = stream_all(backend, shared[1], NEW_TOKENS)
+    # (b) the same traffic on a pool that queues admission for pages.
+    tight = LMBackend(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                      paged=True, page_size=PAGE, num_pages=TIGHT_PAGES,
+                      device="cuda")
+    probe_b = PagedProbe(tight.engine)
+    outs_tight = served(tight, shared, NEW_TOKENS)
+    # (c) one long prompt through chunked prefill.
+    chunked = LMBackend(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                        paged=True, page_size=PAGE, prefill_chunk=CHUNK,
+                        device="cuda")
+    probe_c = PagedProbe(chunked.engine)
+    out_long = served(chunked, [long_prompt], 64)[0]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall_s = time.perf_counter() - t0
+
+    probes = (probe_a, probe_b, probe_c)
+    n_tick = sum(len(p.ticks) for p in probes)
+    n_pre = sum(len(p.prefills) for p in probes)
+    log(f"  (a)-(d) in {wall_s:.3f} s: {n_pre} prefills, {n_tick} paged "
+        f"decode ticks")
+    if outs != want_shared:
+        bad = [i for i, (a, b) in enumerate(zip(outs, want_shared)) if a != b]
+        raise AssertionError(f"(a) paged outputs differ from the contiguous "
+                             f"engine's for requests {bad}")
+    most = max(probe_a.shared)
+    if most < PREFIX // PAGE:
+        raise AssertionError(f"(a) at most {most} pages were shared between "
+                             f"live requests, expected {PREFIX // PAGE}")
+    log(f"  (a) 16 greedy requests (prefix {PREFIX} + suffixes "
+        f"{int(suffixes.min())}-{int(suffixes.max())} tokens) equal the "
+        f"contiguous engine's; up to {most} pages shared by live requests; "
+        f"pool {backend.engine.num_pages} pages")
+    if outs_tight != want_shared:
+        raise AssertionError("(b) tight-pool outputs differ from the "
+                             "contiguous engine's")
+    if probe_b.refusals == 0:
+        raise AssertionError("(b) the page budget never held the queue")
+    log(f"  (b) pool of {TIGHT_PAGES} pages: the page budget held the queue "
+        f"head {probe_b.refusals} times while a slot was free; at most "
+        f"{max(a for a, _ in probe_b.ticks)} requests ran at once; every "
+        f"output equals the contiguous engine's")
+    if out_long != want_long:
+        raise AssertionError("(c) chunked paged prefill output differs from "
+                             "the contiguous engine's")
+    reads = sorted({n for r in probe_c.pages_read for n in r})
+    log(f"  (c) {LONG_PROMPT}-token prompt, prefill_chunk {CHUNK}, 64 new "
+        f"tokens: equal to the contiguous engine's; {len(probe_c.prefills)} "
+        f"prefill ({probe_c.prefill_launches[0]['rms_norm'] // (2 * L + 1)} "
+        f"chunks), decode ticks read {reads[0]}-{reads[-1]} pages through "
+        f"K7")
+    if s1 != s2 or len(s1) != 16:
+        raise AssertionError(f"seeded sampling not reproducible: {s1} {s2}")
+    if streamed != outs[1]:
+        raise AssertionError(f"stream {streamed} != whole response "
+                             f"{outs[1]}")
+    log(f"  (d) sampled (T=0.8, seed=42) twice, equal: {s1[:8]}...; "
+        f"streamed request equals its whole response")
+    total = check_paged_launches(probes, L)
+    if total != launches:
+        raise AssertionError(f"launches {launches} != the prefills' and "
+                             f"ticks' {total}")
+    log(f"  launches {launches}: every tick exactly {L} paged_decode, 0 "
+        f"decode_attention, {2 * L + 1} rms_norm")
+    return {"launches": launches, "probe": probe_a, "backend": backend,
+            "contig": contig.engine, "contig_probe": contig_probe}
+
+
 # ------------------------------------- phase 4: card vs CPU, f32, full width
 
 
-def card_vs_cpu(params) -> float:
-    log("phase 4: f32 at full width, card vs CPU, teacher-forced 3 prompts "
-        "x 16 steps (atol 1e-3)")
+class _Recorded(engine_mod._Request):
+    """A greedy request that keeps the logits its prefill hands pick(), so
+    phase 4 reads them through the engine's own _prefill_slot."""
+    __slots__ = ("logits",)
+
+    def pick(self, logits_row):
+        self.logits = torch.from_numpy(np.array(logits_row))
+        return int(np.argmax(logits_row))
+
+
+def card_vs_cpu(params, engine_cls, what: str, **kw) -> float:
+    log(f"phase 4: f32 at full width, card vs CPU, {what}, teacher-forced 3 "
+        "prompts x 16 steps (atol 1e-3)")
     cfg = TransformerConfig(dtype=torch.float32, **FLAGSHIP)
     cpu_params = to_compute(params, cfg, "cpu")
-    engines = [engine_mod.GenerationEngine(params, cfg, max_slots=SLOTS,
-                                           max_seq=MAX_SEQ, device="cuda"),
-               engine_mod.GenerationEngine(cpu_params, cfg, max_slots=SLOTS,
-                                           max_seq=MAX_SEQ, device="cpu")]
+    engines = [engine_cls(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                          device="cuda", **kw),
+               engine_cls(cpu_params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                          device="cpu", **kw)]
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, T0).tolist()
                for T0 in (17, 40, 64)]
@@ -467,19 +734,17 @@ def card_vs_cpu(params) -> float:
 
     with torch.inference_mode():
         for slot, p in enumerate(prompts):
-            T0 = len(p)
-            bucket = 1 << (T0 - 1).bit_length()
-            padded = np.asarray([p + [0] * (bucket - T0)])
-            logits = [engine_mod._prefill_into_slot(
-                e.params, e._device_ints(padded), T0, slot, e.cache_k,
-                e.cache_v, cfg) for e in engines]
-            tok = int(compare(logits[0], logits[1], f"prefill {slot}"))
-            for e in engines:
-                e.lengths[slot], e.tokens[slot] = T0, tok
+            reqs = [_Recorded(slot, p, 17) for _ in engines]
+            for e, req in zip(engines, reqs):
+                e._prefill_slot(slot, req)
+            tok = int(compare(reqs[0].logits, reqs[1].logits,
+                              f"prefill {slot}"))
+            for e in engines:   # both follow the CPU run's tokens
+                e.tokens[slot] = tok
         for step in range(16):
             logits = [e._decode_all() for e in engines]
             nxt = compare(logits[0][:3], logits[1][:3], f"decode {step}")
-            for e in engines:   # both follow the CPU run's tokens
+            for e in engines:
                 e.tokens[:3] = nxt.numpy()
                 e.lengths[:3] += 1
     log(f"  max_abs_err {worst:.3e} over 3 prefills + 16 steps; argmax "
@@ -710,6 +975,98 @@ def timings(main: dict, card: str) -> dict:
     return out
 
 
+def paged_timings(paged: dict, card: str) -> dict:
+    """The paged decode tick against the contiguous one (wall and device
+    time at 8 active slots, on the same lengths), and K7 at the flagship
+    decode shape against its bound, its plain version, the library's
+    gather + SDPA and K6 on the same rows laid out contiguously."""
+    log(f"phase 7: paged timings on {card}")
+    probe, contig = paged["probe"], paged["contig"]
+    eng = paged["backend"].engine
+    walls = {}
+    for name, pr in (("paged", probe), ("contiguous", paged["contig_probe"])):
+        full = [ms for active, ms in pr.ticks if active == SLOTS]
+        walls[name] = float(np.median(full))
+        log(f"  {name} decode tick at {SLOTS} active slots, the 16 "
+            f"shared-prefix requests: median {walls[name]:.3f} ms wall over "
+            f"{len(full)} ticks [{card}]")
+    full = [i for i, (active, _) in enumerate(probe.ticks) if active == SLOTS]
+    mid = full[len(full) // 2]
+    lens = probe.tick_lengths[mid][1]
+    tokens = eng._device_ints(eng.tokens)
+    lengths = eng._device_ints(lens)
+    runs = {
+        "paged": (paged_mod._paged_decode, (
+            eng.params, tokens, lengths,
+            eng._device_ints(probe.tables[mid]), eng.k_pages, eng.v_pages,
+            eng.cfg)),
+        "contiguous": (engine_mod._batched_decode, (
+            contig.params, tokens, lengths, contig.cache_k, contig.cache_v,
+            contig.cfg)),
+    }
+    with torch.inference_mode():
+        for name, (fn, args) in runs.items():
+            dev = min(device_ms(f"{name} decode tick", fn, [args], 2,
+                                sleep_cycles=2_000_000_000)
+                      for _ in range(3))
+            log(f"  {name} decode tick device time {dev:.3f} ms back to "
+                f"back at lengths {lens.tolist()} vs {walls[name]:.3f} ms "
+                f"wall: card busy {dev / walls[name]:.1%} [{card}]")
+
+    bf16 = torch.bfloat16
+    B, H, KH = SLOTS, FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"]
+    D = FLAGSHIP["d_model"] // H
+    P = MAX_SEQ // PAGE
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for target in (600, 2000):
+        lens = [target + i for i in range(B)]
+        live = sum(L + 1 for L in lens)
+        pages = sum(-(-(L + 1) // PAGE) for L in lens)
+        nbytes = (2 * live * KH * D * 2 + 2 * B * H * D * 2 + 4 * pages
+                  + 4 * B)
+        sets = []
+        for i in range(n_copies(2 * live * KH * D * 2)):
+            q, kp, vp, table, ln = paged_inputs(B + 1, H, KH, D, PAGE, P,
+                                                lens + [0], bf16,
+                                                seed=700 + i)
+            q, table, ln = q[:B].contiguous(), table[:B], ln[:B]
+            kc = paged_attention.paged_gather(kp, table).contiguous()
+            vc = paged_attention.paged_gather(vp, table).contiguous()
+            mask = (torch.arange(P * PAGE, device="cuda")[None, :]
+                    <= ln[:, None].long())[:, None, None, :]
+            sets.append((q, kp, vp, table, ln, kc, vc, mask))
+
+        def library(q, kp, vp, table, ln, kc, vc, mask):
+            k = paged_attention.paged_gather(kp, table).transpose(1, 2)
+            v = paged_attention.paged_gather(vp, table).transpose(1, 2)
+            return sdpa(q[:, :, None], k, v, attn_mask=mask)
+
+        t = dict(
+            ms=device_ms("paged_decode_attention kernel", lambda *a:
+                         paged_attention.paged_decode_attention(*a[:5]),
+                         sets, 200),
+            plain_ms=device_ms("paged_decode_attention plain", lambda *a:
+                               paged_attention._paged_decode_ref(*a[:5]),
+                               sets, 40),
+            library_ms=device_ms("paged_gather + SDPA", library, sets, 60),
+            k6_ms=device_ms("decode_attention on the same rows", lambda *a:
+                            attention.decode_attention(a[0], a[5], a[6],
+                                                       a[4]), sets, 200),
+            **bound(nbytes, 4 * live * H * D, bf16),
+            shape=f"B={B} H={H} KH={KH} D={D} ps={PAGE} P={P} bf16, "
+                  f"lengths {lens[0]}-{lens[-1]}")
+        log(f"  paged_decode_attention at {t['shape']}: kernel "
+            f"{t['ms'] * 1e3:.2f} us, K6 on the same rows "
+            f"{t['k6_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+            f"paged_gather + SDPA {t['library_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
+        out.setdefault("paged_decode_attention", t)
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_timings(card: str) -> dict:
     """K2-K5 at the training path's shapes: the kernel, its plain version
     and the PyTorch call that computes the same function."""
@@ -866,15 +1223,20 @@ def main() -> int:
         log(f"  {name}: nvcc {info['seconds']:.1f} s; " + " | ".join(ptxas))
 
     errs = check_kernels()
+    errs.update(check_paged_kernel())
     errs.update(check_train_kernels())
 
     cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
     params = init_params(cuda_gen(SEED), cfg, device="cuda")
     main = main_path(params, cfg)
-    card_vs_cpu(params)
+    paged = paged_path(params, cfg)
+    card_vs_cpu(params, engine_mod.GenerationEngine, "contiguous engine")
+    card_vs_cpu(params, paged_mod.PagedGenerationEngine, "paged engine",
+                page_size=PAGE)
     train = train_path(card)
     train_card_vs_cpu()
     times = timings(main, card)
+    times.update(paged_timings(paged, card))
     times.update(train_timings(card))
     train_breakdown(card, train["step_ms"])
 
@@ -891,6 +1253,9 @@ def main() -> int:
                               "ray_tpu/ops/attention.py:371", train),
         "flash_backward_dkv": ("flash_attention.cu",
                                "ray_tpu/ops/attention.py:393", train),
+        "paged_decode_attention": ("paged_decode_attention.cu",
+                                   "ray_tpu/ops/paged_attention.py:74",
+                                   paged),
     }
     kernels = []
     for name, (source, replaces, path) in table.items():

@@ -14,7 +14,10 @@ The port grows slice by slice (see ROADMAP.md). Slice 1 is the serving path:
 ``serve.LMBackend`` -> ``models.engine.GenerationEngine`` -> the RMSNorm
 and flash-decode kernels. Slice 2 is the train step:
 ``models.make_train_step`` -> ``models.loss_fn`` -> the RMSNorm,
-cross-entropy and flash-attention forward/backward kernels.
+cross-entropy and flash-attention forward/backward kernels. Slice 3 is the
+paged serving path: ``serve.LMBackend(paged=True)`` ->
+``models.paged_engine.PagedGenerationEngine`` (page pool, prefix caching)
+-> the RMSNorm and paged flash-decode kernels.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ them; here the layer loop is a Python ``for`` and every cache write is an
 in-place update of the pool tensors. On the card the decode pass runs the
 hand-written RMSNorm (2L+1 launches) and flash-decode (L launches) kernels.
 
+Subclass hooks (the paged engine, ``models/paged_engine.py``, overrides
+them): ``_alloc_cache``, ``_decode_all``, ``_prefill_slot``,
+``_release_slot`` and ``_can_admit``.
+
 Left for later slices, and refused here with NotImplementedError:
 speculative decoding (``speculative_k > 0``) and a tensor-parallel
 ``mesh``.
@@ -226,16 +230,24 @@ class GenerationEngine:
             raise ValueError(
                 f"prefill_chunk ({self.prefill_chunk}) must divide "
                 f"max_seq ({self.max_seq})")
-        L, KH, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        shape = (L, self.slots, self.max_seq, KH, Dh)
-        self.cache_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-        self.cache_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self._alloc_cache()
         self.lengths = np.zeros(max_slots, np.int32)
         self.tokens = np.zeros(max_slots, np.int32)   # last token per slot
         self.active: List[Optional[_Request]] = [None] * max_slots
         self.queue: List[_Request] = []
         self.done: Dict[int, List[int]] = {}
         self._next_id = 0
+
+    def _alloc_cache(self) -> None:
+        """Allocate the contiguous KV cache [L, slots, max_seq, KH, Dh]. A
+        hook so the paged engine never allocates it, not even for a moment:
+        at the small page budgets it exists for, that spike alone could
+        exhaust the card's memory."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, self.slots, self.max_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        self.cache_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.cache_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
 
     # ---- public API ----
 
@@ -359,14 +371,22 @@ class GenerationEngine:
         self.active[slot] = None
         self.lengths[slot] = 0
 
+    def _can_admit(self, req: _Request) -> bool:
+        """Capacity gate beyond free slots (paged engine: page budget)."""
+        return True
+
     def _admit(self) -> List[Tuple[int, int, bool]]:
-        """Fill free slots from the queue (FIFO); a request that finishes at
+        """Fill free slots from the queue; a request that finishes at
         prefill frees its slot immediately, so the same slot can admit
         several one-token requests within one tick. Returns the
-        prefill-produced (req_id, first_token, done) events."""
+        prefill-produced (req_id, first_token, done) events. FIFO: if the
+        queue head can't be admitted (capacity gate), nothing behind it
+        jumps ahead."""
         events: List[Tuple[int, int, bool]] = []
         for slot in range(self.slots):
             while self.queue and self.active[slot] is None:
+                if not self._can_admit(self.queue[0]):
+                    return events
                 req = self.queue.pop(0)
                 done = self._prefill_slot(slot, req)
                 events.append((req.req_id, req.out[0], done))

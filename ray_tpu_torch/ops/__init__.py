@@ -5,3 +5,4 @@ from .attention import (  # noqa: F401
     attention_reference, decode_attention, masked_gqa_attention,
 )
 from .fused import rms_norm  # noqa: F401
+from .paged_attention import PagePool, paged_decode_attention  # noqa: F401

@@ -18,9 +18,14 @@ in one reply.
     tok = backend.stream_start([1, 2, 3], max_new_tokens=16)
     backend.stream_poll(tok, wait_s=1.0)   # {"tokens": [...], "done": ...}
 
-Left for later slices, and refused here with NotImplementedError: the paged
-engine (``paged=True``), tensor parallelism (``tp > 1``) and speculative
-decoding (``speculative_k > 0``, refused by the engine).
+``paged=True`` serves through ``models.paged_engine.PagedGenerationEngine``
+instead: the KV cache is a pool of ``num_pages`` pages of ``page_size``
+rows with prefix caching, and admission queues FIFO on the page budget;
+outputs are the same.
+
+Left for later slices, and refused here with NotImplementedError: tensor
+parallelism (``tp > 1``) and speculative decoding (``speculative_k > 0``,
+refused by the engines).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Any, List, Optional
 from .. import Device
 from ..exceptions import ReplicaUnavailableError
 from ..models.engine import GenerationEngine
+from ..models.paged_engine import PagedGenerationEngine
 from .api import accept_batch
 from .config import ServeRequest
 
@@ -51,7 +57,8 @@ class LMBackend:
                  default_max_new_tokens: int = 32,
                  max_seq: Optional[int] = None,
                  stream_idle_timeout_s: float = 120.0,
-                 paged: bool = False, speculative_k: int = 0,
+                 paged: bool = False, page_size: int = 128,
+                 num_pages: Optional[int] = None, speculative_k: int = 0,
                  tp: int = 1, prefill_chunk: int = 0,
                  device: Device = None):
         if tp > 1:
@@ -59,13 +66,18 @@ class LMBackend:
                 "tensor-parallel serving (tp > 1) is not ported yet; it "
                 "comes with the parallelism slice of ROADMAP.md")
         if paged:
-            raise NotImplementedError(
-                "the paged engine (paged=True) is not ported yet; it comes "
-                "with the paged-engine slice of ROADMAP.md")
-        self.engine = GenerationEngine(
-            params, cfg, max_slots=max_slots, eos_id=eos_id,
-            max_seq=max_seq, speculative_k=speculative_k,
-            prefill_chunk=prefill_chunk, device=device)
+            # Paged KV: cache memory bounded by num_pages instead of
+            # max_slots * max_seq; admission queues FIFO on page budget.
+            self.engine = PagedGenerationEngine(
+                params, cfg, max_slots=max_slots, eos_id=eos_id,
+                max_seq=max_seq, page_size=page_size, num_pages=num_pages,
+                speculative_k=speculative_k, prefill_chunk=prefill_chunk,
+                device=device)
+        else:
+            self.engine = GenerationEngine(
+                params, cfg, max_slots=max_slots, eos_id=eos_id,
+                max_seq=max_seq, speculative_k=speculative_k,
+                prefill_chunk=prefill_chunk, device=device)
         self.default_max_new_tokens = default_max_new_tokens
         self.stream_idle_timeout_s = stream_idle_timeout_s
         # RLock: stream_poll -> _expire_idle_streams -> stream_cancel

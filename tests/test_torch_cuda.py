@@ -280,3 +280,104 @@ def test_train_step_on_card_matches_cpu_small_f32(dev):
         losses.append([step(params, opt, {"tokens": tokens})[2].item()
                        for _ in range(3)])
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=0)
+
+
+def _paged_inputs(B, H, KH, D, ps, P, lengths, dtype, seed):
+    """A pool (a layer slice of a two-layer pool, read through its strides)
+    with shuffled pages past the scratch page 0, and tables -1 padded past
+    each sequence's pages."""
+    g = _gen(seed)
+    num_pages = B * P + 3
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(2, num_pages, ps, KH, D, generator=g,
+                    device="cuda").to(dtype)[1]
+    v = torch.randn(2, num_pages, ps, KH, D, generator=g,
+                    device="cuda").to(dtype)[1]
+    ids = np.random.default_rng(seed).permutation(B * P) + 1
+    table = np.full((B, P), -1, np.int32)
+    for b, L in enumerate(lengths):
+        used = min(-(-(L + 1) // ps), P)
+        table[b, :used] = ids[b * P:b * P + used]
+    return (q, k, v, torch.tensor(table, device="cuda"),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+_PAGED_SHAPES = [   # (B, H, KH, D, ps, P, lengths): chip_smoke's phase 2
+    (6, 16, 16, 64, 128, 16, [0, 127, 128, 600, 2047, 0]),   # flagship
+    (4, 32, 4, 128, 64, 16, [0, 63, 500, 1023]),             # GQA, G = 8
+    (3, 8, 2, 64, 16, 8, [80, 127, 3]),                      # small page
+    (3, 16, 1, 128, 32, 4, [127, 200, 0]),   # MQA, length past P*ps - 1
+]
+
+
+@pytest.mark.parametrize("B,H,KH,D,ps,P,lengths", _PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_matches_plain(dev, B, H, KH, D, ps, P, lengths,
+                                           dtype):
+    """K7 against its plain version (f32 atol 2e-5: summation order; bf16
+    atol = rtol = 2e-2: the plain version rounds scores to bf16), the last
+    row idle (length 0, a table of -1), and bit for bit equal to K6 on the
+    same rows gathered into a contiguous cache (same tiles, same
+    arithmetic)."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, table, lens = _paged_inputs(B, H, KH, D, ps, P, lengths, dtype,
+                                         seed=D + ps)
+    table[-1] = -1
+    lens[-1] = 0
+    with torch.inference_mode():
+        got = pa.paged_decode_attention(q, k, v, table, lens)
+        want = pa._paged_decode_ref(q, k, v, table, lens)
+        tol = (dict(atol=2e-5, rtol=0) if dtype == torch.float32
+               else dict(atol=2e-2, rtol=2e-2))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if P * ps <= 4096:
+            # K6 attends at most S - 1; clamp as K7 clamps at P * ps - 1.
+            kc = pa.paged_gather(k, table).contiguous()
+            vc = pa.paged_gather(v, table).contiguous()
+            k6 = attention.decode_attention(
+                q, kc, vc, lens.clamp_max(P * ps - 1))
+            assert torch.equal(got, k6)
+
+
+def test_paged_decode_kernel_refuses_grad_and_bad_args(dev):
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, table, lens = _paged_inputs(2, 4, 2, 64, 16, 4, [10, 30],
+                                         torch.float32, seed=1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pa.paged_decode_attention(q.requires_grad_(), k, v, table, lens)
+    with torch.no_grad():
+        assert pa.paged_decode_attention(q, k, v, table, lens).shape == \
+            q.shape
+        with pytest.raises(TypeError, match="int32"):
+            pa.paged_decode_attention(q, k, v, table.long(), lens)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            pa.paged_decode_attention(q, k, v, table.cpu(), lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_engine_on_card_equals_contiguous_engine(dev, dtype):
+    """Greedy outputs of the paged engine (shared 2-page prefix, page size
+    32, chunked prefill for the longest prompt) equal the contiguous
+    engine's on the card, token for token."""
+    from ray_tpu_torch.models import TransformerConfig, init_params
+    from ray_tpu_torch.models.engine import GenerationEngine
+    from ray_tpu_torch.models.paged_engine import PagedGenerationEngine
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=4, n_kv_heads=2, d_ff=512,
+                            max_seq_len=512, dtype=dtype)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, 512, 64).tolist()
+    prompts = [prefix + rng.integers(0, 512, int(n)).tolist()
+               for n in rng.integers(4, 60, 9)]
+    outs = []
+    for cls, kw in ((GenerationEngine, {}),
+                    (PagedGenerationEngine, dict(page_size=32))):
+        eng = cls(params, cfg, max_slots=4, device="cuda", **kw)
+        ids = [eng.submit(p, 12) for p in prompts]
+        res = eng.run_until_done()
+        outs.append([res[i] for i in ids])
+    assert outs[0] == outs[1]

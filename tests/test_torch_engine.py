@@ -16,6 +16,7 @@ from ray_tpu_torch.models import TransformerConfig as TCfg
 from ray_tpu_torch.models import engine as teng
 from ray_tpu_torch.models import params_from_numpy
 from ray_tpu_torch.models.generate import generate as t_generate
+from ray_tpu_torch.models.paged_engine import PagedGenerationEngine
 from ray_tpu_torch.serve import LMBackend, ServeRequest
 
 CPU = "cpu"
@@ -205,7 +206,9 @@ def test_unported_features_raise_naming_the_slice(model):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.GenerationEngine(tparams, tcfg, mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMBackend(tparams, tcfg, paged=True, device=CPU)
+        PagedGenerationEngine(tparams, tcfg, speculative_k=2, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LMBackend(tparams, tcfg, paged=True, tp=2, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMBackend(tparams, tcfg, tp=2, device=CPU)
 

@@ -15,8 +15,8 @@ import torch
 import ray_tpu_torch
 from ray_tpu_torch._kernels import build
 from ray_tpu_torch.models import TransformerConfig, init_params
-from ray_tpu_torch.models import engine, generate, transformer
-from ray_tpu_torch.ops import attention, fused
+from ray_tpu_torch.models import engine, generate, paged_engine, transformer
+from ray_tpu_torch.ops import attention, fused, paged_attention
 from ray_tpu_torch.serve import LMBackend
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -82,6 +82,10 @@ _ENTRY_POINTS = {
     "GenerationEngine": lambda: engine.GenerationEngine(_cpu_params(),
                                                         _tiny()),
     "LMBackend": lambda: LMBackend(_cpu_params(), _tiny()),
+    "PagedGenerationEngine": lambda: paged_engine.PagedGenerationEngine(
+        _cpu_params(), _tiny(), page_size=8),
+    "LMBackend_paged": lambda: LMBackend(_cpu_params(), _tiny(), paged=True,
+                                         page_size=8),
 }
 
 
@@ -164,7 +168,8 @@ _FLASH_WRAPPERS = {
 }
 _COUNTERS = (fused.rms_norm, fused.softmax_cross_entropy,
              attention.flash_forward, attention.flash_backward_dq,
-             attention.flash_backward_dkv, attention.decode_attention)
+             attention.flash_backward_dkv, attention.decode_attention,
+             paged_attention.paged_decode_attention)
 
 
 @pytest.mark.parametrize("case", [
@@ -218,6 +223,39 @@ def test_xent_kernel_wrapper_refuses_what_it_does_not_take(case):
     assert [f.launches for f in _COUNTERS] == before
 
 
+def _paged_meta(D=64, dtype=torch.float32, pages_dtype=None,
+                pages_device="meta"):
+    q = torch.ones(2, 4, D, dtype=dtype, **_META)
+    pages = torch.ones(5, 8, 2, D, dtype=pages_dtype or dtype,
+                       device=pages_device)
+    table = torch.zeros(2, 3, dtype=torch.int32, **_META)
+    lengths = torch.zeros(2, dtype=torch.int32, **_META)
+    return q, pages, pages, table, lengths
+
+
+@pytest.mark.parametrize("case", [
+    "not_cuda", "cpu_operand", "d96", "mixed_dtypes", "float16"])
+def test_paged_decode_kernel_wrapper_refuses_what_it_does_not_take(case):
+    """Off the CPU, paged_decode_attention takes K7 or raises: a tensor off
+    the card, a CPU operand beside a non-CPU one, a head dim outside
+    {64, 128}, or dtypes the kernel does not take are refused, never handed
+    to the plain version, and nothing is counted."""
+    args, err, match = {
+        "not_cuda": (_paged_meta(), ValueError, "CUDA tensors"),
+        "cpu_operand": (_paged_meta(pages_device="cpu"), ValueError,
+                        "CUDA tensors"),
+        "d96": (_paged_meta(D=96), ValueError, "D in"),
+        "mixed_dtypes": (_paged_meta(pages_dtype=torch.bfloat16), TypeError,
+                         "one dtype"),
+        "float16": (_paged_meta(dtype=torch.float16), TypeError,
+                    "one dtype"),
+    }[case]
+    before = [f.launches for f in _COUNTERS]
+    with pytest.raises(err, match=match):
+        paged_attention.paged_decode_attention(*args)
+    assert [f.launches for f in _COUNTERS] == before
+
+
 def test_cuda_routes_refuse_cpu_tensors():
     """The CUDA route of each wrapper, handed CPU tensors, raises rather
     than computing on them."""
@@ -228,6 +266,12 @@ def test_cuda_routes_refuse_cpu_tensors():
         attention._check_flash_args(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused._rms_norm_cuda(torch.ones(2, 8), torch.ones(8), 1e-5)
+    pages = torch.ones(3, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_attention._paged_decode_cuda(
+            torch.ones(1, 2, 64), pages, pages,
+            torch.zeros(1, 2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
 
 
 def test_train_step_runs_where_the_parameters_lie():
