@@ -9,10 +9,12 @@ it fails:
 
 1. start-up: the card's name and power limit (nvidia-smi), then nvcc builds
    every kernel of both paths from ray_tpu_torch/csrc into
-   ray_tpu_torch/_build (one nvcc per source, all at once);
+   ray_tpu_torch/_build (one nvcc per source, all at once); ptxas's
+   registers and spills of the bf16 flash forward (tensor cores) at D 64
+   and D 128, where any spill fails the run;
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the serving and training paths give it (and GQA, ragged and
-   small-page shapes), in f32 and bf16;
+   shapes the serving and training paths give it (and GQA, ragged,
+   tile-edge and small-page shapes), in f32 and bf16;
 3. the serving path at the flagship config's full width (vocab 32000,
    d_model 1024, 8 layers, 16 heads, bf16, 8 slots, max_seq 2048, random
    weights from a seed): one batched LMBackend call of 12 greedy requests,
@@ -40,9 +42,10 @@ it fails:
 7. timings (CUDA events) of each kernel, its plain version and the
    PyTorch library call that computes the same function, beside the
    kernel's least possible time on the card (the paged kernel also beside
-   the contiguous one on the same rows); the paged decode tick against the
-   contiguous one; the train step's device time against its wall, and its
-   kernels by name (torch.profiler).
+   the contiguous one on the same rows; the flash forward also in f32, at
+   a GQA shape, and as TFLOP/s beside SDPA's); the paged decode tick
+   against the contiguous one; the train step's device time against its
+   wall, and its kernels by name (torch.profiler), K3-K5 each.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -184,6 +188,50 @@ def bound(nbytes: int, ops: int, dtype) -> dict:
 
 def n_copies(bytes_per_call: int) -> int:
     return max(1, min(64, math.ceil(128e6 / max(bytes_per_call, 1))))
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from nvcc -Xptxas=-v output."""
+    out, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def check_tc_ptxas(log_text: str) -> None:
+    """The bf16 K3 (flash_fwd_tc_kernel) at D 64 and D 128: registers and
+    spills as ptxas reports them; any spill fails the run."""
+    seen = set()
+    for name, r in sorted(ptxas_report(log_text).items()):
+        m = re.search(r"flash_fwd_tc_kernelILi(\d+)ELb([01])E", name)
+        if not m:
+            continue
+        D, causal = int(m.group(1)), m.group(2) == "1"
+        what = f"flash_fwd_tc_kernel<D={D}, causal={causal}>"
+        log(f"  {what}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads, "
+            f"{r.get('stack')} bytes stack")
+        if r.get("spill_stores") != 0 or r.get("spill_loads") != 0:
+            raise AssertionError(f"{what} spills: {r}")
+        seen.add(D)
+    if seen != {64, 128}:
+        raise AssertionError("ptxas reported no bf16 K3 at D "
+                             f"{sorted({64, 128} - seen)}")
 
 
 # ------------------------------------------------- phase 2: kernel checks
@@ -342,6 +390,7 @@ FLASH_SHAPES = (   # (tag, B, T = S, H, KH, D, causal)
      FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], True),
     ("gqa", 2, 1024, 32, 4, 128, True),
     ("ragged", 2, 1000, 8, 2, 64, False),
+    ("tile edge", 2, 129, 8, 2, 128, True),
 )
 
 
@@ -1142,6 +1191,43 @@ def train_timings(card: str) -> dict:
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
     log("  (the library time of both backward kernels is one SDPA backward, "
         "which computes dq, dk and dv together)")
+    k3 = out["flash_forward"]
+    log(f"  flash_forward bf16 (tensor cores) at {shape}: "
+        f"{2 * mm / k3['ms'] / 1e9:.1f} TFLOP/s, SDPA's forward "
+        f"{2 * mm / k3['library_ms'] / 1e9:.1f} TFLOP/s; kernel / SDPA "
+        f"{k3['ms'] / k3['library_ms']:.3f}, kernel / bound "
+        f"{k3['ms'] / k3['bound_ms']:.3f} [{card}]")
+    # K3's f32 route (FMA loops, no TF32) at the same shape, and K3 at a
+    # GQA shape beside SDPA's forward on k/v repeated to every query head.
+    q, k, v, _ = flash_inputs(B, T, H, KH, D, f32, seed=510)
+    f32_ms = device_ms("flash_forward kernel f32", lambda *a:
+                       attention.flash_forward(*a, True), [(q, k, v)], 3)
+    log(f"  flash_forward f32 (FMA loops) at B={B} T=S={T} H={H} KH={KH} "
+        f"D={D} causal: kernel {f32_ms * 1e3:.2f} us, "
+        f"{2 * mm / f32_ms / 1e9:.1f} TFLOP/s [{card}]")
+    del q, k, v
+    Bg, Tg, Hg, KHg, Dg = 2, 1024, 32, 4, 128
+    mm_g = 2 * Bg * Hg * Dg * (Tg * (Tg + 1) // 2)
+    g_bytes = (2 * Bg * Tg * Hg * Dg + 2 * Bg * Tg * KHg * Dg) * 2 \
+        + Bg * Hg * Tg * 4
+    gsets = []
+    for i in range(4):
+        q, k, v, _ = flash_inputs(Bg, Tg, Hg, KHg, Dg, bf16, seed=520 + i)
+        gsets.append((q, k, v) + tuple(
+            attention._repeat_kv(t, Hg).transpose(1, 2).contiguous()
+            for t in (k, v)) + (q.transpose(1, 2),))
+    g_ms = device_ms("flash_forward kernel gqa", lambda *a:
+                     attention.flash_forward(*a[:3], True), gsets, 20)
+    g_lib = device_ms("SDPA forward gqa", lambda *a: sdpa(
+        a[5], a[3], a[4], is_causal=True), gsets, 20)
+    log(f"  flash_forward bf16 at B={Bg} T=S={Tg} H={Hg} KH={KHg} D={Dg} "
+        f"causal: kernel {g_ms * 1e3:.2f} us "
+        f"({2 * mm_g / g_ms / 1e9:.1f} TFLOP/s), SDPA forward on repeated "
+        f"k/v {g_lib * 1e3:.2f} us, bound "
+        f"{bound(g_bytes, 2 * mm_g, bf16)['bound_ms'] * 1e3:.3f} us "
+        f"[{card}]")
+    del gsets
+    torch.cuda.empty_cache()
     # K1 at the training shape, for the record.
     sets = [rms_inputs(N, bf16, seed=600)]
     k1_ms = device_ms("rms_norm kernel [train]",
@@ -1194,6 +1280,10 @@ def train_breakdown(card: str, step_ms: float) -> None:
         f"in {sum(r[2] for r in rows)} device events [{card}]")
     for group, ms in by_group.items():
         log(f"    {ms:9.3f} ms {ms / total:6.1%}  {group}")
+    for tag, key in (("K3 forward", "flash_fwd"), ("K4 dq", "flash_dq"),
+                     ("K5 dk/dv", "flash_dkv")):
+        ms = sum(r[1] for r in rows if key in r[0])
+        log(f"    {ms:9.3f} ms {ms / total:6.1%}    of which {tag}")
     log("  largest kernels:")
     for name, ms, count in rows[:12]:
         log(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {name[:80]}")
@@ -1221,6 +1311,7 @@ def main() -> int:
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"  {name}: nvcc {info['seconds']:.1f} s; " + " | ".join(ptxas))
+    check_tc_ptxas(built["flash_attention"]["log"])
 
     errs = check_kernels()
     errs.update(check_paged_kernel())

@@ -57,8 +57,10 @@ def lib_path(name: str) -> Path:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     """Compile every named kernel whose library is missing, one nvcc each,
-    all started together. Returns {name: {"seconds", "log", "cached"}};
-    raises RuntimeError with nvcc's output if any build fails."""
+    all started together. Returns {name: {"seconds", "log", "cached"}}, the
+    log being nvcc's output (ptxas's registers and spills), kept beside the
+    library for a cached one; raises RuntimeError with nvcc's output if any
+    build fails."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, dict] = {}
@@ -67,7 +69,10 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
         for name in names:
             path = lib_path(name)
             if path.exists():
-                out[name] = {"seconds": 0.0, "log": "", "cached": True}
+                saved = path.with_suffix(".log")
+                out[name] = {"seconds": 0.0, "cached": True,
+                             "log": saved.read_text() if saved.exists()
+                             else ""}
                 continue
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -81,6 +86,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
                 raise RuntimeError(
                     f"nvcc failed for csrc/{name}.cu "
                     f"(exit {proc.returncode}):\n{log}")
+            path.with_suffix(".log").write_text(log)   # ptxas's report
             os.replace(tmp, path)   # atomic: concurrent builders agree
             out[name] = {"seconds": time.perf_counter() - t0, "log": log,
                          "cached": False}

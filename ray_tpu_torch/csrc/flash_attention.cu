@@ -1,7 +1,8 @@
-// Flash attention forward and backward for Hopper (sm_90a): three kernels.
+// Flash attention forward and backward for Hopper (sm_90a): four kernels.
 //
 // Replaces (ray_tpu/ops/attention.py, the Pallas TPU kernels):
-//   flash_fwd_kernel  <- _flash_kernel via _flash_forward (K3): out and the
+//   flash_fwd_tc_kernel (bf16) and flash_fwd_kernel (f32)
+//                     <- _flash_kernel via _flash_forward (K3): out and the
 //                        row logsumexp lse;
 //   flash_dq_kernel   <- _bwd_dq_kernel via _flash_backward, first
 //                        pallas_call (K4): dq;
@@ -15,28 +16,58 @@
 // The arithmetic follows the Pallas kernels, not the XLA reference: scores
 // are f32 dot products scaled afterwards; masked positions (causal k > q, and
 // the ragged tails past T or S) score NEG_INF = -1e30; in the forward the
-// online softmax keeps its running max, sum and accumulator in f32, p enters
-// the PV product rounded to v's dtype, o = acc / max(l, 1e-30) and
-// lse = m + log(max(l, 1e-30)); in the backward p = exp(s - lse) and
-// ds = p * (dp - dsum) * scale, with p rounded to do's dtype for dv and ds to
-// q's or k's for dk and dq. One difference: dk and dv are summed over the G
-// query heads of a group in f32 inside K5, where the JAX package casts each
-// head's result to bf16 and sums those.
+// online softmax keeps its running max, sum and accumulator in f32, the sum
+// takes the unrounded f32 p, p enters the PV product rounded to v's dtype,
+// o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)); in the backward
+// p = exp(s - lse) and ds = p * (dp - dsum) * scale, with p rounded to do's
+// dtype for dv and ds to q's or k's for dk and dq. One difference: dk and dv
+// are summed over the G query heads of a group in f32 inside K5, where the
+// JAX package casts each head's result to bf16 and sums those.
 //
-// Bound on this card: operations. At the training path's shape (B 8, T = S
-// 2048, H = KH 16, D 64, causal) each of the products is 2*B*H*T*T*D/2 = 34.4
-// GFLOP; K3 does 2 of them (69 us at 989 TFLOP/s bf16), K4 3 (104 us), K5 4
-// (139 us). The bytes (q, k, v, o, do, once each) are ~34 MB, ~10 us.
+// K3, what bounds it on this card: operations. At the training path's shape
+// (B 8, T = S 2048, H = KH 16, D 64, causal) each of its two products
+// (S = Q K^T, then O = P V) is 2*B*H*D*T*(T+1)/2 = 34.4 GFLOP: 69.5 us at
+// 989 TFLOP/s bf16. Its bytes (q, k, v, out once each, lse) are ~34 MB, ~10
+// us at 3.35 TB/s. So the design keeps the tensor cores fed and everything
+// else (softmax, loads) in their shadow:
+//   - both products are mma.sync m16n8k16 bf16 -> f32 (csrc/tc_tile.cuh);
+//   - one warp owns 16 query rows. A block holds 128 of them (8 warps) at
+//     D 64 and 64 (4 warps) at D 128, and 2 blocks share an SM: the warps
+//     in flight are what hides each warp's serial S -> softmax -> PV chain.
+//     Q's fragments come by ldmatrix once per block and stay in registers
+//     at D 128; at D 64 the 128 registers a thread has at 2 blocks of 8
+//     warps do not hold them, so ldmatrix reloads them for every kv tile;
+//   - the score tile stays in registers: its f32 accumulators, packed to
+//     bf16 pairs, are the A operand of P V, so P never touches shared
+//     memory; row max and sum reduce over the quad of lanes holding a row,
+//     and each lane keeps its share of l until the end;
+//   - K and V arrive as bf16 tiles of 64 rows by cp.async into a ring of
+//     three stages at D 64 and two at D 128: the next tiles are in flight
+//     while tile i's products run; rows past S are zero-filled; one barrier
+//     a tile. Rows are padded to D + 8 elements, so the 8 row addresses of
+//     every ldmatrix fall on distinct bank groups;
+//   - tiles above a warp's causal diagonal are skipped; only tiles that
+//     straddle it or the ragged edge of S are masked, each score by one
+//     compare of its column against its row's last column;
+//   - the block's q tile is the slowest grid axis, walked last-first, so
+//     the longest kv loops start first;
+//   - out is staged through the warp's own rows of the Q tile and written
+//     with 16-byte stores.
+// exp is 2^x on the special-function unit, p = 2^(x log2 e - m log2 e).
+// The f32 path keeps the FMA kernel below (no TF32: its results hold the f32
+// train step to the CPU's within 3.4e-6).
 //
-// Design, simple first: FMA loops on the CUDA cores over f32 tiles in
-// shared memory, no tensor cores (so the f32 path has no TF32 either), no
-// cp.async/TMA pipelining. Each block holds 64-row tiles; its 256 threads
-// form a 16 x 16 grid and each owns a 4 x 4 micro-tile of the 64 x 64 score
-// tile (rows ty + 16 i, columns tx + 16 j) and 4 rows x D/16 columns of the
-// f32 accumulators, in registers. Tile rows are padded to D + 1 floats so
-// the per-row dot products are free of bank conflicts. Row statistics are
-// reduced over the 16 threads of a row with shuffles. Tiles above the causal
-// diagonal are skipped. Blocks carry nothing between each other, so:
+// K4, K5 (and K3 for f32). Bound: operations. K4 does 3 of the products
+// above (104 us at 989 TFLOP/s), K5 4 (139 us). Design, simple first: FMA
+// loops on the CUDA cores over f32 tiles in shared memory, no tensor cores
+// (so the f32 path has no TF32 either), no cp.async/TMA pipelining. Each
+// block holds 64-row tiles; its 256 threads form a 16 x 16 grid and each
+// owns a 4 x 4 micro-tile of the 64 x 64 score tile (rows ty + 16 i,
+// columns tx + 16 j) and 4 rows x D/16 columns of the f32 accumulators, in
+// registers. Tile rows are padded to D + 1 floats so the per-row dot
+// products are free of bank conflicts. Row statistics are reduced over the
+// 16 threads of a row with shuffles. Tiles above the causal diagonal are
+// skipped. Blocks carry nothing between each other, so:
 //   K3, K4: one block per (q tile, h, b); a loop over the kv tiles up to the
 //           diagonal takes the place of the TPU's sequential grid axis. The
 //           q tiles run last-first, the longest loops first.
@@ -48,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -130,7 +163,7 @@ constexpr size_t dkv_smem_floats() {
   return 4 * TILE * (D + 1) + 2 * TILE * SP + 2 * TILE;
 }
 
-// ------------------------------------------------------------------ K3
+// ------------------------------------------------------------- K3, f32
 
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
@@ -242,6 +275,240 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       orow[tx + 16 * j] = from_f32<T>(acc[i][j] / den);
     if (tx == 0)
       lse[((long long)b * sh.H + h) * sh.T + r] = m[i] + logf(den);
+  }
+}
+
+// ------------------------------------------------------------ K3, bf16
+
+constexpr int TC_BN = 64;          // kv rows per tile
+constexpr int TC_MIN_BLOCKS = 2;   // blocks per SM the registers must allow
+
+// By head dim (measured with k3_variants.py): warps per block, each owning
+// 16 query rows; the depth of the K/V ring; and whether Q's fragments stay
+// in registers for the whole kv loop (else ldmatrix reloads them for every
+// tile). At D 64 with 8 warps, 2 blocks per SM leave 128 registers a
+// thread, and Q's 16 fragment registers would spill. At D 128 a third
+// stage would leave shared memory for one block per SM.
+template <int D>
+__host__ __device__ constexpr int tc_warps() { return D == 64 ? 8 : 4; }
+template <int D>
+__host__ __device__ constexpr int tc_stages() { return D == 64 ? 3 : 2; }
+template <int D>
+__host__ __device__ constexpr bool tc_q_in_regs() { return D != 64; }
+template <int D>
+__host__ __device__ constexpr size_t fwd_tc_smem_bytes() {
+  // Q [16 * warps][D + 8], K and V [stages][TC_BN][D + 8], bf16.
+  return (size_t)(16 * tc_warps<D>() + 2 * tc_stages<D>() * TC_BN) *
+         (D + 8) * sizeof(__nv_bfloat16);
+}
+
+// Rows [row0, row0 + ROWS) of a [rows, D] bf16 view (row stride in
+// elements) into dst [ROWS][D + 8] by cp.async; rows at or past end are
+// zero-filled. Every thread of the block takes part.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void tile_async(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long row_stride, int row0,
+                                           int end) {
+  constexpr int CH = D / 8;   // 16-byte chunks per row
+  static_assert(ROWS * CH % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool ok = row0 + r < end;
+    tc_tile::cp_async_16(
+        dst + r * (D + 8) + c,
+        ok ? src + (long long)(row0 + r) * row_stride + c : src, ok);
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(32 * tc_warps<D>(), TC_MIN_BLOCKS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    Strides sq, Strides sk, Strides sv, Shape sh) {
+  using namespace tc_tile;
+  constexpr int WARPS = tc_warps<D>(), THREADS = 32 * WARPS;
+  constexpr int STAGES = tc_stages<D>();
+  constexpr int BM = 16 * WARPS, BN = TC_BN, P = D + 8;
+  constexpr int KD = D / 16, ND = D / 8, NS = BN / 8;
+  constexpr bool QR = tc_q_in_regs<D>();
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + BM * P;               // [STAGES][BN][P]
+  __nv_bfloat16* vs = ks + STAGES * BN * P;      // [STAGES][BN][P]
+
+  const int qt = gridDim.y - 1 - blockIdx.y;     // longest loops first
+  const int h = blockIdx.x % sh.H, b = blockIdx.x / sh.H, kh = h / sh.G;
+  const int q0 = qt * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;          // fragment row, pair
+  const int lm = lane >> 3, lr = lane & 7;        // ldmatrix matrix, row
+  const int rw = q0 + 16 * warp;                  // the warp's first row
+  const __nv_bfloat16* kb = k + b * sk.b + kh * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + kh * sv.h;
+  const int kv_end = CAUSAL ? min(sh.S, q0 + BM) : sh.S;
+  const int n_kv = (kv_end + BN - 1) / BN;
+
+  // Q and the first STAGES - 1 K/V tiles in flight: one group a tile, Q in
+  // the first.
+  tile_async<BM, D, THREADS>(qs, q + b * sq.b + h * sq.h, sq.t, q0, sh.T);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_kv) {
+      tile_async<BN, D, THREADS>(ks + st * BN * P, kb, sk.t, st * BN, sh.S);
+      tile_async<BN, D, THREADS>(vs + st * BN * P, vb, sv.t, st * BN, sh.S);
+    }
+    cp_async_commit();
+  }
+  const __nv_bfloat16* q_frag =   // this lane's ldmatrix row of Q
+      qs + (16 * warp + 8 * (lm & 1) + lr) * P + 8 * (lm >> 1);
+
+  // Rows g and g + 8 of the warp's 16 (index hf = 0, 1): running max, this
+  // lane's share of the sum, and columns 8 j + 2 t, + 1 of the accumulator.
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  uint32_t qa[KD][4];
+
+  for (int i = 0; i < n_kv; ++i) {
+    cp_async_wait<STAGES - 2>();   // tile i (and Q) have landed
+    // One barrier a tile: past it, tile i is visible to every warp and
+    // every warp is done with tile i - 1, whose stage the next load takes.
+    __syncthreads();
+    const int nxt = i + STAGES - 1;
+    if (nxt < n_kv) {
+      const int st = nxt % STAGES;
+      tile_async<BN, D, THREADS>(ks + st * BN * P, kb, sk.t, nxt * BN, sh.S);
+      tile_async<BN, D, THREADS>(vs + st * BN * P, vb, sv.t, nxt * BN, sh.S);
+    }
+    cp_async_commit();
+    if (QR && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qa[kk], q_frag + 16 * kk);
+    }
+    const int k0 = i * BN;
+    // A tile wholly above the warp's diagonal, or a warp wholly past T,
+    // changes nothing: p would be 0 and corr 1.
+    if (rw < sh.T && !(CAUSAL && k0 > rw + 15)) {
+      const __nv_bfloat16* kt = ks + (i % STAGES) * BN * P;
+      const __nv_bfloat16* vt = vs + (i % STAGES) * BN * P;
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q K^T: K rows are the B operand's columns, as stored.
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        if (!QR) ldmatrix_x4(qa[kk], q_frag + 16 * kk);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kt + (16 * jp + 8 * (lm >> 1) + lr) * P + 16 * kk +
+                              8 * (lm & 1));
+          mma_bf16_16816(s[2 * jp], qa[kk], bk[0], bk[1]);
+          mma_bf16_16816(s[2 * jp + 1], qa[kk], bk[2], bk[3]);
+        }
+      }
+      // Scale, then mask where the tile straddles the diagonal or S:
+      // column c of row r is masked when c > min(r, S - 1) (c >= S, or
+      // causal c > r), one compare against a constant per score.
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sh.scale;
+      if (k0 + BN > sh.S || (CAUSAL && k0 + BN - 1 > rw)) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int last = CAUSAL ? min(rw + g + 8 * hf, sh.S - 1) : sh.S - 1;
+          const int lim = last - k0 - 2 * t;   // relative to column 8 j + e
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * j + e > lim) s[j][2 * hf + e] = NEG_INF;
+        }
+      }
+      // Online softmax; p replaces the scores in place.
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = m[hf];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+        const float m_new = quad_max(mx);
+        const float corr = exp2_approx((m[hf] - m_new) * LOG2E);
+        const float ml = m_new * LOG2E;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+            const float p = exp2_approx(fmaf(s[j][e], LOG2E, -ml));
+            s[j][e] = p;
+            sum += p;
+          }
+        l[hf] = l[hf] * corr + sum;
+        m[hf] = m_new;
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          o[j][2 * hf] *= corr;
+          o[j][2 * hf + 1] *= corr;
+        }
+      }
+      // O += P V: P from registers as bf16 pairs, V transposed by ldmatrix.
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int jp = 0; jp < KD; ++jp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vt + (16 * kk + 8 * (lm & 1) + lr) * P +
+                                    16 * jp + 8 * (lm >> 1));
+          mma_bf16_16816(o[2 * jp], pa, bv[0], bv[1]);
+          mma_bf16_16816(o[2 * jp + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // out = acc / max(l, 1e-30) in bf16, staged through the warp's own rows of
+  // the Q tile (no other warp reads them) for 16-byte stores;
+  // lse = m + log(max(l, 1e-30)).
+  __nv_bfloat16* stage = qs + 16 * warp * P;
+  __syncwarp();   // the warp's last ldmatrix of Q is done
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float den = fmaxf(quad_sum(l[hf]), 1e-30f);
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * hf) * P + 8 * j +
+                                   2 * t) =
+          pack_bf16x2(o[j][2 * hf] / den, o[j][2 * hf + 1] / den);
+    const int r = rw + g + 8 * hf;
+    if (t == 0 && r < sh.T)
+      lse[((long long)b * sh.H + h) * sh.T + r] = m[hf] + logf(den);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * ND; e += 32) {
+    const int r = e / ND, c = (e % ND) * 8;
+    if (rw + r < sh.T)
+      *reinterpret_cast<uint4*>(
+          out + (((long long)b * sh.T + rw + r) * sh.H + h) * D + c) =
+          *reinterpret_cast<const uint4*>(stage + r * P + c);
   }
 }
 
@@ -523,6 +790,29 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename T, int D, bool CAUSAL>
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* out,
+                   void* lse, const long long* st, Shape sh,
+                   cudaStream_t stream) {
+  static_assert(sizeof(T) == 2, "the tensor-core forward takes bf16");
+  constexpr int BM = 16 * tc_warps<D>();
+  const long long heads = (long long)sh.H * sh.B;
+  const int n_qt = (sh.T + BM - 1) / BM;
+  if (heads > 0x7fffffffLL || n_qt > 65535) return cudaErrorInvalidValue;
+  const size_t bytes = fwd_tc_smem_bytes<D>();
+  auto kern = flash_fwd_tc_kernel<D, CAUSAL>;
+  cudaError_t err = prepare(kern, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)heads, n_qt);
+  kern<<<grid, 32 * tc_warps<D>(), bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool CAUSAL>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dsum,
                    void* dq, const long long* st, Shape sh,
@@ -567,32 +857,38 @@ bool valid_shape(int B, int T, int S, int H, int KH) {
 
 }  // namespace
 
-// Dispatch over dtype (0 = float32, 1 = bfloat16), D in {64, 128} and
-// causal in {0, 1}; anything else returns cudaErrorInvalidValue.
-#define RT_FLASH_DISPATCH(FN, ...)                                           \
+// Dispatch over dtype (0 = float32 to F32, 1 = bfloat16 to BF16), D in
+// {64, 128} and causal in {0, 1}; anything else returns
+// cudaErrorInvalidValue. The dtype alone picks the route.
+#define RT_FLASH_DISPATCH2(F32, BF16, ...)                                   \
   do {                                                                       \
     if (dtype == 0 && D == 64 && causal)                                     \
-      return (int)FN<float, 64, true>(__VA_ARGS__);                          \
+      return (int)F32<float, 64, true>(__VA_ARGS__);                         \
     if (dtype == 0 && D == 64 && !causal)                                    \
-      return (int)FN<float, 64, false>(__VA_ARGS__);                         \
+      return (int)F32<float, 64, false>(__VA_ARGS__);                        \
     if (dtype == 0 && D == 128 && causal)                                    \
-      return (int)FN<float, 128, true>(__VA_ARGS__);                         \
+      return (int)F32<float, 128, true>(__VA_ARGS__);                        \
     if (dtype == 0 && D == 128 && !causal)                                   \
-      return (int)FN<float, 128, false>(__VA_ARGS__);                        \
+      return (int)F32<float, 128, false>(__VA_ARGS__);                       \
     if (dtype == 1 && D == 64 && causal)                                     \
-      return (int)FN<__nv_bfloat16, 64, true>(__VA_ARGS__);                  \
+      return (int)BF16<__nv_bfloat16, 64, true>(__VA_ARGS__);                \
     if (dtype == 1 && D == 64 && !causal)                                    \
-      return (int)FN<__nv_bfloat16, 64, false>(__VA_ARGS__);                 \
+      return (int)BF16<__nv_bfloat16, 64, false>(__VA_ARGS__);               \
     if (dtype == 1 && D == 128 && causal)                                    \
-      return (int)FN<__nv_bfloat16, 128, true>(__VA_ARGS__);                 \
+      return (int)BF16<__nv_bfloat16, 128, true>(__VA_ARGS__);               \
     if (dtype == 1 && D == 128 && !causal)                                   \
-      return (int)FN<__nv_bfloat16, 128, false>(__VA_ARGS__);                \
+      return (int)BF16<__nv_bfloat16, 128, false>(__VA_ARGS__);              \
     return (int)cudaErrorInvalidValue;                                       \
   } while (0)
+#define RT_FLASH_DISPATCH(FN, ...) RT_FLASH_DISPATCH2(FN, FN, __VA_ARGS__)
 
 // Shared memory one block of each kernel needs, in bytes (which: 0 = K3,
-// 1 = K4, 2 = K5), for the wrapper's check against the card's 227 KB.
-extern "C" long long flash_smem_bytes(int which, int D) {
+// 1 = K4, 2 = K5; dtype as in the launchers), for the wrapper's check
+// against the card's 227 KB.
+extern "C" long long flash_smem_bytes(int which, int D, int dtype) {
+  if (which == 0 && dtype == 1)
+    return (long long)(D == 64 ? fwd_tc_smem_bytes<64>()
+                               : fwd_tc_smem_bytes<128>());
   const size_t f = which == 0 ? (D == 64 ? fwd_smem_floats<64>()
                                          : fwd_smem_floats<128>())
                  : which == 1 ? (D == 64 ? dq_smem_floats<64>()
@@ -612,7 +908,7 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v,
   if (!valid_shape(B, T, S, H, KH)) return (int)cudaErrorInvalidValue;
   Shape sh{B, T, S, H, KH, H / KH, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_FLASH_DISPATCH(fwd, q, k, v, out, lse, strides, sh, s);
+  RT_FLASH_DISPATCH2(fwd, fwd_tc, q, k, v, out, lse, strides, sh, s);
 }
 
 // strides in the order q, k, v, do. dq [B, T, H, D] is written contiguous.

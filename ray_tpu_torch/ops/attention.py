@@ -40,7 +40,7 @@ _FLASH_SIGNATURES = {
     "flash_forward": ([_P] * 5 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
     "flash_backward_dq": ([_P] * 7 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
     "flash_backward_dkv": ([_P] * 8 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
-    "flash_smem_bytes": ([_I, _I], _L),
+    "flash_smem_bytes": ([_I, _I, _I], _L),
 }
 
 
@@ -328,7 +328,7 @@ def _launch_flash(fn_name: str, which: int, q, k, v, tensors, outputs,
     B, T, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     lib = load("flash_attention", _FLASH_SIGNATURES)
-    smem = lib.flash_smem_bytes(which, D)
+    smem = lib.flash_smem_bytes(which, D, _DTYPES[q.dtype])
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{fn_name}: D={D} needs {smem} bytes of shared "
                          f"memory per block, above the card's {_SMEM_LIMIT}")
@@ -346,7 +346,8 @@ def _launch_flash(fn_name: str, which: int, q, k, v, tensors, outputs,
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True):
     """(out [B, T, H, D], lse [B, H, T] f32). CUDA tensors go through the
-    hand-written kernel K3 (``flash_forward.launches``); CPU tensors through
+    hand-written kernel K3 (``flash_forward.launches``): bf16 on the tensor
+    cores, f32 on FMA loops (no TF32); CPU tensors through
     ``_flash_forward_ref``."""
     if q.device.type == "cpu":
         return _flash_forward_ref(q, k, v, causal)

@@ -134,10 +134,12 @@ class LMBackend:
                     self._cond.wait()
                 try:
                     events = self.engine.step()
-                except Exception as e:  # noqa: BLE001
+                except BaseException as e:  # noqa: BLE001
                     # The pump dying silently would hang every waiter
-                    # forever: fail every live request with the error and
-                    # drain the engine so a poisoned step can't rerun.
+                    # forever (and leave the replica reporting healthy):
+                    # fail every live request with the error, whatever its
+                    # class, and drain the engine so a poisoned step can't
+                    # rerun.
                     self._poison(e)
                     continue
                 for rid, tok, done in events:

@@ -150,6 +150,15 @@ def test_xent_kernel_strided_rows_and_out_of_range_label(dev):
     (1, 40, 150, 2, 2, 64, True),        # causal S > T: kv tiles no q sees
     (1, 64, 64, 16, 1, 128, True),       # MQA, G = 16
     (1, 130, 130, 8, 8, 128, False),
+    # Tile edges of the tensor-core forward (128 q rows at D 64, 64 at
+    # D 128; 64 kv rows a tile).
+    (1, 127, 127, 4, 2, 64, True),
+    (1, 128, 128, 4, 2, 64, True),
+    (2, 129, 129, 4, 2, 64, True),
+    (1, 257, 257, 4, 2, 64, False),
+    (1, 129, 129, 8, 2, 128, True),
+    (1, 100, 300, 4, 2, 64, True),       # causal S > T over 5 kv tiles
+    (1, 200, 200, 16, 2, 128, True),     # D 128, G = 8
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(dev, B, T, S, H, KH, D, causal, dtype):
@@ -180,15 +189,34 @@ def test_flash_kernels_match_plain(dev, B, T, S, H, KH, D, causal, dtype):
         torch.testing.assert_close(got, want, **gtol)
 
 
-def test_flash_kernels_read_strided_views(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_read_strided_views(dev, dtype):
     """q/k/v as head slices of a fused [B, T, 3, H, D] projection: the
-    kernels read through the strides, no copies."""
+    kernels read through the strides, no copies (in bf16 the forward's
+    cp.async loads do). Tolerances as in test_flash_kernels_match_plain."""
     qkv = torch.randn(2, 80, 3, 4, 64, generator=_gen(3), device=dev)
-    q, k, v = qkv.unbind(2)
+    q, k, v = qkv.to(dtype).unbind(2)
     assert not q.is_contiguous()
     out, lse = attention.flash_forward(q, k, v, True)
     ref_out, ref_lse = attention._flash_forward_ref(q, k, v, True)
-    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_is_deterministic(dev, dtype):
+    """Two launches on the same inputs give the same bits: no atomics, a
+    fixed summation order."""
+    g = _gen(11)
+    q = torch.randn(2, 300, 8, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 300, 2, 128, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 300, 2, 128, generator=g, device=dev).to(dtype)
+    for causal in (True, False):
+        out1, lse1 = attention.flash_forward(q, k, v, causal)
+        out2, lse2 = attention.flash_forward(q, k, v, causal)
+        assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
 
 
 def _grads_on(device, fn, *arrays):

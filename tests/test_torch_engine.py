@@ -287,3 +287,39 @@ def test_lm_backend_pump_error_propagates(model):
         for _ in range(100):
             b2.stream_poll(token, wait_s=5.0)
     assert not b2._streams and not b2._stream_seen and not b2._failed
+
+
+class _PumpStop(BaseException):
+    """Not an Exception: what a bare ``except Exception`` lets through."""
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lm_backend_pump_base_exception_poisons(model, paged):
+    """A BaseException that escapes engine.step() fails the waiting call
+    with that exception and marks the replica unhealthy, as the reference
+    pump does; the pump never dies with the caller left blocked."""
+    import threading
+
+    _, _, tcfg, tparams = model
+
+    def stop():
+        raise _PumpStop("pump stopped")
+
+    b = LMBackend(tparams, tcfg, max_slots=2, paged=paged, device=CPU)
+    b.engine.step = stop
+    raised = []
+
+    def call():
+        try:
+            b([ServeRequest(([1, 2, 3],), {"max_new_tokens": 4})])
+        except BaseException as e:  # noqa: BLE001
+            raised.append(e)
+
+    caller = threading.Thread(target=call, daemon=True)
+    caller.start()
+    caller.join(timeout=30)
+    assert not caller.is_alive(), "the caller is still blocked"
+    assert len(raised) == 1 and isinstance(raised[0], _PumpStop)
+    health = b.check_health()
+    assert not health["healthy"]
+    assert "_PumpStop: pump stopped" in health["reason"]
