@@ -1,12 +1,15 @@
-// Flash attention forward and backward for Hopper (sm_90a): four kernels.
+// Flash attention forward and backward for Hopper (sm_90a): six kernels,
+// a tensor-core one for bf16 and an FMA one for f32 of each.
 //
 // Replaces (ray_tpu/ops/attention.py, the Pallas TPU kernels):
 //   flash_fwd_tc_kernel (bf16) and flash_fwd_kernel (f32)
 //                     <- _flash_kernel via _flash_forward (K3): out and the
 //                        row logsumexp lse;
-//   flash_dq_kernel   <- _bwd_dq_kernel via _flash_backward, first
+//   flash_dq_tc_kernel (bf16) and flash_dq_kernel (f32)
+//                     <- _bwd_dq_kernel via _flash_backward, first
 //                        pallas_call (K4): dq;
-//   flash_dkv_kernel  <- _bwd_dkv_kernel via _flash_backward, second
+//   flash_dkv_tc_kernel (bf16) and flash_dkv_kernel (f32)
+//                     <- _bwd_dkv_kernel via _flash_backward, second
 //                        pallas_call (K5): dk and dv.
 // q, out, do: [B, T, H, D]; k, v: [B, S, KH, D] (the JAX layout), read
 // through their batch/row/head strides with the last axis contiguous, never
@@ -57,10 +60,51 @@
 // The f32 path keeps the FMA kernel below (no TF32: its results hold the f32
 // train step to the CPU's within 3.4e-6).
 //
-// K4, K5 (and K3 for f32). Bound: operations. K4 does 3 of the products
-// above (104 us at 989 TFLOP/s), K5 4 (139 us). Design, simple first: FMA
-// loops on the CUDA cores over f32 tiles in shared memory, no tensor cores
-// (so the f32 path has no TF32 either), no cp.async/TMA pipelining. Each
+// K4, K5 in bf16. Bound: operations. K4 does 3 causal products of 34.4
+// GFLOP at the training shape (S = Q K^T, dP = dO V^T, dQ = dS K: 104 us at
+// 989 TFLOP/s), K5 4 (S^T, dP^T, dV = P^T dO, dK = dS^T Q: 139 us); their
+// bytes are ~13 us. So, as for K3, every product is mma.sync m16n8k16 and
+// the elementwise work between them stays in registers:
+//   - two kernels and no atomics, as on the TPU: K4 writes dq, K5 dk and
+//     dv, each block its own output tile once, so the bits are the same on
+//     every run;
+//   - K4: one warp owns 16 query rows and walks the kv tiles up to its
+//     diagonal (K3's loop). S and dP take K and V as stored for the B
+//     operand; p = 2^(s scale log2 e - lse log2 e) and ds = p (dp - dsum)
+//     scale replace them in registers, with lse and dsum of the warp's
+//     rows g, g + 8 in four registers; ds, packed to bf16 pairs, is the A
+//     fragment of dQ += dS K, K read by ldmatrix.trans. Q and dO are loaded
+//     once; K and V stream through a cp.async ring;
+//   - K5: one warp owns 16 kv rows and walks the G query heads of its group
+//     and the q tiles from the diagonal on. It computes the transposed
+//     tiles S^T = K Q^T and dP^T = V dO^T (Q and dO as the B operand, as
+//     stored), so that p^T and ds^T, packed, are the A fragments of
+//     dV += P^T dO and dK += dS^T Q (dO and Q by ldmatrix.trans): neither
+//     touches shared memory. lse and dsum index the columns here: they
+//     arrive with each q tile by 4-byte cp.async into a small shared array.
+//     q rows past T get p = 0 (their zero-filled q row would give
+//     p = 2^0). K and V are loaded once; Q, dO, lse, dsum stream through a
+//     cp.async ring;
+//   - each pass of S and dP covers a chunk of 32 or 64 columns, not the
+//     whole 64-column tile, so that both f32 tiles fit in registers beside
+//     the accumulators; the operands' fragments are reloaded by ldmatrix
+//     for each chunk;
+//   - registers decide the tile sizes (set by measurement with
+//     flash_variants.py; ptxas must report no spill, chip_smoke.py fails
+//     on one): K4 keeps 16 x D f32 of dq a warp, as K3 keeps out, and runs
+//     K3's shapes (8 warps and 128 registers at D 64, 4 warps at D 128, 2
+//     blocks per SM). K5 keeps dk and dv, 64 registers a thread at D 64 and
+//     128 at D 128, so it runs 4 warps (64 kv rows) a block, 3 blocks per SM
+//     at D 64 (168 registers) and 2 at D 128 (255);
+//   - K4's q tiles run last-first and K5's kv tile 0 (the most q tiles)
+//     first, so the longest loops start first;
+//   - one barrier a tile, rows padded to D + 8, masks only on the chunks
+//     that straddle the diagonal or a ragged edge, outputs staged through
+//     the warp's own rows of the resident tile for 16-byte stores.
+//
+// K3, K4, K5 in f32. Design, simple first: FMA loops on the CUDA cores over
+// f32 tiles in shared memory, no tensor cores (so no TF32: the f32 train
+// step holds to the CPU's), no cp.async/TMA pipelining. Each
 // block holds 64-row tiles; its 256 threads form a 16 x 16 grid and each
 // owns a 4 x 4 micro-tile of the 64 x 64 score tile (rows ty + 16 i,
 // columns tx + 16 j) and 4 rows x D/16 columns of the f32 accumulators, in
@@ -759,6 +803,439 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------- K4, K5 in bf16
+
+constexpr int BWD_TILE = 64;   // kv rows per K4 tile, q rows per K5 tile
+
+// By head dim (measured with flash_variants.py): warps per block (each
+// owning 16 rows), blocks per SM the registers must allow, the depth of
+// the streamed ring and the columns of one S / dP pass. K4 takes K3's
+// shapes; 64-column passes at D 64 and a third stage spill at its 128
+// registers. K5's dk and dv take D registers a thread: 8-warp blocks (128
+// registers) spill at D 64, and at 2 blocks per SM (a cap of 255) it ran
+// 15% slower than at 3 (168); 64-column passes spill at both head dims.
+template <int D>
+__host__ __device__ constexpr int dq_warps() { return D == 64 ? 8 : 4; }
+template <int D>
+__host__ __device__ constexpr int dq_min_blocks() { return 2; }
+template <int D>
+__host__ __device__ constexpr int dq_stages() { return 2; }
+template <int D>
+__host__ __device__ constexpr int dq_cols() { return D == 64 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr int dkv_warps() { return 4; }
+template <int D>
+__host__ __device__ constexpr int dkv_min_blocks() { return D == 64 ? 3 : 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_stages() { return 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_cols() { return 32; }
+
+template <int D>
+__host__ __device__ constexpr size_t dq_tc_smem_bytes() {
+  // Q and dO [16 * warps][D + 8], K and V [stages][BWD_TILE][D + 8], bf16.
+  return (size_t)(2 * 16 * dq_warps<D>() + 2 * dq_stages<D>() * BWD_TILE) *
+         (D + 8) * sizeof(__nv_bfloat16);
+}
+template <int D>
+__host__ __device__ constexpr size_t dkv_tc_smem_bytes() {
+  // K and V [16 * warps][D + 8], Q and dO [stages][BWD_TILE][D + 8], bf16;
+  // lse and dsum [stages][BWD_TILE], f32.
+  return (size_t)(2 * 16 * dkv_warps<D>() + 2 * dkv_stages<D>() * BWD_TILE) *
+             (D + 8) * sizeof(__nv_bfloat16) +
+         (size_t)2 * dkv_stages<D>() * BWD_TILE * sizeof(float);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(32 * dq_warps<D>(), dq_min_blocks<D>())
+flash_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dsum,
+                   __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk,
+                   Strides sv, Strides sdo, Shape sh) {
+  using namespace tc_tile;
+  constexpr int WARPS = dq_warps<D>(), THREADS = 32 * WARPS;
+  constexpr int STAGES = dq_stages<D>();
+  constexpr int BM = 16 * WARPS, BN = BWD_TILE, P = D + 8;
+  constexpr int KD = D / 16, ND = D / 8, NC = dq_cols<D>(), NS = NC / 8;
+  static_assert(STAGES >= 2 && BN % NC == 0, "ring and chunks");
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + BM * P;              // [BM][P]
+  __nv_bfloat16* ks = dos + BM * P;              // [STAGES][BN][P]
+  __nv_bfloat16* vs = ks + STAGES * BN * P;      // [STAGES][BN][P]
+
+  const int qt = gridDim.y - 1 - blockIdx.y;     // longest loops first
+  const int h = blockIdx.x % sh.H, b = blockIdx.x / sh.H, kh = h / sh.G;
+  const int q0 = qt * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;          // fragment row, pair
+  const int lm = lane >> 3, lr = lane & 7;        // ldmatrix matrix, row
+  const int rw = q0 + 16 * warp;                  // the warp's first row
+  const __nv_bfloat16* kb = k + b * sk.b + kh * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + kh * sv.h;
+  const int kv_end = CAUSAL ? min(sh.S, q0 + BM) : sh.S;
+  const int n_kv = (kv_end + BN - 1) / BN;
+
+  // Q, dO and the first STAGES - 1 K/V tiles in flight, one group a tile.
+  tile_async<BM, D, THREADS>(qs, q + b * sq.b + h * sq.h, sq.t, q0, sh.T);
+  tile_async<BM, D, THREADS>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0,
+                             sh.T);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_kv) {
+      tile_async<BN, D, THREADS>(ks + st * BN * P, kb, sk.t, st * BN, sh.S);
+      tile_async<BN, D, THREADS>(vs + st * BN * P, vb, sv.t, st * BN, sh.S);
+    }
+    cp_async_commit();
+  }
+  const int frag = (16 * warp + 8 * (lm & 1) + lr) * P + 8 * (lm >> 1);
+
+  // lse (in log2 units) and dsum of rows g and g + 8 (hf = 0, 1); rows past
+  // T read 0, and their zero-filled q and do rows give ds = 0.
+  const long long stat0 = ((long long)b * sh.H + h) * sh.T;
+  float lse2[2], dsr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = rw + g + 8 * hf;
+    lse2[hf] = r < sh.T ? lse[stat0 + r] * LOG2E : 0.f;
+    dsr[hf] = r < sh.T ? dsum[stat0 + r] : 0.f;
+  }
+  const float sl2 = sh.scale * LOG2E;
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < n_kv; ++i) {
+    cp_async_wait<STAGES - 2>();   // tile i (and Q, dO) have landed
+    __syncthreads();               // and every warp is done with tile i - 1
+    const int nxt = i + STAGES - 1;
+    if (nxt < n_kv) {
+      const int st = nxt % STAGES;
+      tile_async<BN, D, THREADS>(ks + st * BN * P, kb, sk.t, nxt * BN, sh.S);
+      tile_async<BN, D, THREADS>(vs + st * BN * P, vb, sv.t, nxt * BN, sh.S);
+    }
+    cp_async_commit();
+    if (rw >= sh.T) continue;      // a warp wholly past T
+    const __nv_bfloat16* kt = ks + (i % STAGES) * BN * P;
+    const __nv_bfloat16* vt = vs + (i % STAGES) * BN * P;
+#pragma unroll
+    for (int c0 = 0; c0 < BN; c0 += NC) {
+      const int kc = i * BN + c0;
+      // A chunk wholly above the warp's diagonal or past S adds nothing.
+      if (kc >= sh.S || (CAUSAL && kc > rw + 15)) continue;
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      // S = Q K^T and dP = dO V^T: K and V rows are the B operand's columns.
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t qa[4], da[4];
+        ldmatrix_x4(qa, qs + frag + 16 * kk);
+        ldmatrix_x4(da, dos + frag + 16 * kk);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          const int at = (c0 + 16 * jp + 8 * (lm >> 1) + lr) * P + 16 * kk +
+                         8 * (lm & 1);
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, kt + at);
+          mma_bf16_16816(s[2 * jp], qa, bk[0], bk[1]);
+          mma_bf16_16816(s[2 * jp + 1], qa, bk[2], bk[3]);
+          ldmatrix_x4(bv, vt + at);
+          mma_bf16_16816(dp[2 * jp], da, bv[0], bv[1]);
+          mma_bf16_16816(dp[2 * jp + 1], da, bv[2], bv[3]);
+        }
+      }
+      // p, then ds in place of s. Column c of row r is masked when
+      // c > min(r, S - 1), checked only where the chunk straddles it.
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = exp2_approx(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+      if (kc + NC > sh.S || (CAUSAL && kc + NC - 1 > rw)) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int last =
+              CAUSAL ? min(rw + g + 8 * hf, sh.S - 1) : sh.S - 1;
+          const int lim = last - kc - 2 * t;   // relative to column 8 j + e
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * j + e > lim) s[j][2 * hf + e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * (dp[j][e] - dsr[e >> 1]) * sh.scale;
+      // dQ += dS K: dS from registers as bf16 pairs, K transposed by
+      // ldmatrix.
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        const uint32_t a[4] = {
+            pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int jp = 0; jp < KD; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, kt + (c0 + 16 * kk + 8 * (lm & 1) + lr) * P +
+                                    16 * jp + 8 * (lm >> 1));
+          mma_bf16_16816(acc[2 * jp], a, bk[0], bk[1]);
+          mma_bf16_16816(acc[2 * jp + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+  // dq in bf16, staged through the warp's own rows of the Q tile (no other
+  // warp reads them) for 16-byte stores.
+  __nv_bfloat16* stage = qs + 16 * warp * P;
+  __syncwarp();   // the warp's last ldmatrix of Q is done
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * hf) * P + 8 * j +
+                                   2 * t) =
+          pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * ND; e += 32) {
+    const int r = e / ND, c = (e % ND) * 8;
+    if (rw + r < sh.T)
+      *reinterpret_cast<uint4*>(
+          dq + (((long long)b * sh.T + rw + r) * sh.H + h) * D + c) =
+          *reinterpret_cast<const uint4*>(stage + r * P + c);
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(32 * dkv_warps<D>(), dkv_min_blocks<D>())
+flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk,
+                    Strides sv, Strides sdo, Shape sh) {
+  using namespace tc_tile;
+  constexpr int WARPS = dkv_warps<D>(), THREADS = 32 * WARPS;
+  constexpr int STAGES = dkv_stages<D>();
+  constexpr int BKV = 16 * WARPS, BQ = BWD_TILE, P = D + 8;
+  constexpr int KD = D / 16, ND = D / 8, NC = dkv_cols<D>(), NS = NC / 8;
+  static_assert(STAGES >= 2 && BQ % NC == 0, "ring and chunks");
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + BKV * P;              // [BKV][P]
+  __nv_bfloat16* qs = vs + BKV * P;              // [STAGES][BQ][P]
+  __nv_bfloat16* dos = qs + STAGES * BQ * P;     // [STAGES][BQ][P]
+  float* lse_s = reinterpret_cast<float*>(dos + STAGES * BQ * P);
+  float* dsum_s = lse_s + STAGES * BQ;           // [STAGES][BQ] each
+
+  const int kvt = blockIdx.y;   // kv tile 0, with the most q tiles, first
+  const int kh = blockIdx.x % sh.KH, b = blockIdx.x / sh.KH;
+  const int k0 = kvt * BKV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;
+  const int kw = k0 + 16 * warp;                  // the warp's first kv row
+  // q rows below the block's first kv row see none of its keys under the
+  // causal mask: start at the q tile that holds k0.
+  const int q_start = CAUSAL ? (k0 / BQ) * BQ : 0;
+  const int n_q = q_start < sh.T ? (sh.T - q_start + BQ - 1) / BQ : 0;
+  const int n_it = sh.G * n_q;   // (query head, q tile), head-major
+
+  // Q, dO, lse, dsum of item it into stage st.
+  auto load = [&](int it, int st) {
+    const int gi = it / n_q, q0 = q_start + (it - gi * n_q) * BQ;
+    const int h = kh * sh.G + gi;
+    tile_async<BQ, D, THREADS>(qs + st * BQ * P, q + b * sq.b + h * sq.h,
+                               sq.t, q0, sh.T);
+    tile_async<BQ, D, THREADS>(dos + st * BQ * P,
+                               dout + b * sdo.b + h * sdo.h, sdo.t, q0, sh.T);
+    const long long stat0 = ((long long)b * sh.H + h) * sh.T;
+    for (int e = threadIdx.x; e < 2 * BQ; e += THREADS) {
+      const int r = e % BQ;
+      const bool ok = q0 + r < sh.T;
+      cp_async_4((e < BQ ? lse_s : dsum_s) + st * BQ + r,
+                 (e < BQ ? lse : dsum) + stat0 + (ok ? q0 + r : 0), ok);
+    }
+  };
+
+  // K, V and the first STAGES - 1 items in flight, K and V in the first
+  // group.
+  tile_async<BKV, D, THREADS>(ks, k + b * sk.b + kh * sk.h, sk.t, k0, sh.S);
+  tile_async<BKV, D, THREADS>(vs, v + b * sv.b + kh * sv.h, sv.t, k0, sh.S);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_it) load(st, st);
+    cp_async_commit();
+  }
+  const int frag = (16 * warp + 8 * (lm & 1) + lr) * P + 8 * (lm >> 1);
+  const float sl2 = sh.scale * LOG2E;
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<STAGES - 2>();   // item it (and K, V) have landed
+    __syncthreads();               // and every warp is done with it - 1
+    const int nxt = it + STAGES - 1;
+    if (nxt < n_it) load(nxt, nxt % STAGES);
+    cp_async_commit();
+    if (kw >= sh.S) continue;      // a warp wholly past S
+    const int st = it % STAGES;
+    const int q0 = q_start + (it % n_q) * BQ;
+    const __nv_bfloat16* qt = qs + st * BQ * P;
+    const __nv_bfloat16* dot = dos + st * BQ * P;
+    const float* ls = lse_s + st * BQ;
+    const float* dss = dsum_s + st * BQ;
+#pragma unroll
+    for (int c0 = 0; c0 < BQ; c0 += NC) {
+      const int qc = q0 + c0;
+      // A chunk wholly past T, or whose q rows all lie above the warp's
+      // kv rows (r < c everywhere), adds nothing.
+      if (qc >= sh.T || (CAUSAL && qc + NC - 1 < kw)) continue;
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      // S^T = K Q^T and dP^T = V dO^T: Q and dO rows are the B operand's
+      // columns, as stored.
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, ks + frag + 16 * kk);
+        ldmatrix_x4(va, vs + frag + 16 * kk);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          const int at = (c0 + 16 * jp + 8 * (lm >> 1) + lr) * P + 16 * kk +
+                         8 * (lm & 1);
+          uint32_t bq[4], bd[4];
+          ldmatrix_x4(bq, qt + at);
+          mma_bf16_16816(s[2 * jp], ka, bq[0], bq[1]);
+          mma_bf16_16816(s[2 * jp + 1], ka, bq[2], bq[3]);
+          ldmatrix_x4(bd, dot + at);
+          mma_bf16_16816(dp[2 * jp], va, bd[0], bd[1]);
+          mma_bf16_16816(dp[2 * jp + 1], va, bd[2], bd[3]);
+        }
+      }
+      // p^T in s and ds^T in dp. Element e of n-tile j is kv row
+      // kw + g + 8 (e / 2), q row qc + 8 j + 2 t + e % 2; it is masked
+      // when the q row is past T or (causal) below the kv row, checked
+      // only where the chunk straddles either.
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(ls + c0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = exp2_approx(
+              fmaf(s[j][e], sl2, -((e & 1) ? l2.y : l2.x) * LOG2E));
+      }
+      if (qc + NC > sh.T || (CAUSAL && qc < kw + 15)) {
+        const int hi = sh.T - qc - 2 * t;   // relative to column 8 j + e % 2
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int lo = kw + g + 8 * hf - qc - 2 * t;
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * j + e >= hi || (CAUSAL && 8 * j + e < lo))
+                s[j][2 * hf + e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dss + c0 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - ((e & 1) ? d2.y : d2.x)) *
+                     sh.scale;
+      }
+      // dV += P^T dO and dK += dS^T Q: the A fragments from registers as
+      // bf16 pairs, dO and Q transposed by ldmatrix.
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t da[4] = {
+            pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]),
+            pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int jp = 0; jp < KD; ++jp) {
+          const int at = (c0 + 16 * kk + 8 * (lm & 1) + lr) * P + 16 * jp +
+                         8 * (lm >> 1);
+          uint32_t bd[4], bq[4];
+          ldmatrix_x4_trans(bd, dot + at);
+          mma_bf16_16816(dva[2 * jp], pa, bd[0], bd[1]);
+          mma_bf16_16816(dva[2 * jp + 1], pa, bd[2], bd[3]);
+          ldmatrix_x4_trans(bq, qt + at);
+          mma_bf16_16816(dka[2 * jp], da, bq[0], bq[1]);
+          mma_bf16_16816(dka[2 * jp + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  // dk, dv in bf16, staged through the warp's own rows of the K and V
+  // tiles for 16-byte stores, once every copy into them has landed (with
+  // no q tile, K and V may still be in flight).
+  cp_async_wait<0>();
+  __syncthreads();
+  __nv_bfloat16* stage_k = ks + 16 * warp * P;
+  __nv_bfloat16* stage_v = vs + 16 * warp * P;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int at = (g + 8 * hf) * P + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(stage_k + at) =
+          pack_bf16x2(dka[j][2 * hf], dka[j][2 * hf + 1]);
+      *reinterpret_cast<uint32_t*>(stage_v + at) =
+          pack_bf16x2(dva[j][2 * hf], dva[j][2 * hf + 1]);
+    }
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * ND; e += 32) {
+    const int r = e / ND, c = (e % ND) * 8;
+    if (kw + r < sh.S) {
+      const long long at =
+          (((long long)b * sh.S + kw + r) * sh.KH + kh) * D + c;
+      *reinterpret_cast<uint4*>(dk + at) =
+          *reinterpret_cast<const uint4*>(stage_k + r * P + c);
+      *reinterpret_cast<uint4*>(dv + at) =
+          *reinterpret_cast<const uint4*>(stage_v + r * P + c);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers
 
 template <typename K>
@@ -850,6 +1327,59 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, int D, bool CAUSAL>
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* dsum,
+                      void* dq, const long long* st, Shape sh,
+                      cudaStream_t stream) {
+  static_assert(sizeof(T) == 2, "the tensor-core dq takes bf16");
+  constexpr int BM = 16 * dq_warps<D>();
+  const long long heads = (long long)sh.H * sh.B;
+  const int n_qt = (sh.T + BM - 1) / BM;
+  if (heads > 0x7fffffffLL || n_qt > 65535) return cudaErrorInvalidValue;
+  const size_t bytes = dq_tc_smem_bytes<D>();
+  auto kern = flash_dq_tc_kernel<D, CAUSAL>;
+  cudaError_t err = prepare(kern, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)heads, n_qt);
+  kern<<<grid, 32 * dq_warps<D>(), bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<__nv_bfloat16*>(dq), strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool CAUSAL>
+cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* dsum,
+                       void* dk, void* dv, const long long* st, Shape sh,
+                       cudaStream_t stream) {
+  static_assert(sizeof(T) == 2, "the tensor-core dk/dv takes bf16");
+  constexpr int BKV = 16 * dkv_warps<D>();
+  const long long heads = (long long)sh.KH * sh.B;
+  const int n_kt = (sh.S + BKV - 1) / BKV;
+  if (heads > 0x7fffffffLL || n_kt > 65535) return cudaErrorInvalidValue;
+  const size_t bytes = dkv_tc_smem_bytes<D>();
+  auto kern = flash_dkv_tc_kernel<D, CAUSAL>;
+  cudaError_t err = prepare(kern, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)heads, n_kt);
+  kern<<<grid, 32 * dkv_warps<D>(), bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), sh);
+  return cudaGetLastError();
+}
+
 bool valid_shape(int B, int T, int S, int H, int KH) {
   return B > 0 && T > 0 && S > 0 && KH > 0 && H > 0 && H % KH == 0 &&
          B <= 65535 && H <= 65535;
@@ -880,21 +1410,25 @@ bool valid_shape(int B, int T, int S, int H, int KH) {
       return (int)BF16<__nv_bfloat16, 128, false>(__VA_ARGS__);              \
     return (int)cudaErrorInvalidValue;                                       \
   } while (0)
-#define RT_FLASH_DISPATCH(FN, ...) RT_FLASH_DISPATCH2(FN, FN, __VA_ARGS__)
 
 // Shared memory one block of each kernel needs, in bytes (which: 0 = K3,
 // 1 = K4, 2 = K5; dtype as in the launchers), for the wrapper's check
 // against the card's 227 KB.
 extern "C" long long flash_smem_bytes(int which, int D, int dtype) {
-  if (which == 0 && dtype == 1)
-    return (long long)(D == 64 ? fwd_tc_smem_bytes<64>()
-                               : fwd_tc_smem_bytes<128>());
-  const size_t f = which == 0 ? (D == 64 ? fwd_smem_floats<64>()
-                                         : fwd_smem_floats<128>())
-                 : which == 1 ? (D == 64 ? dq_smem_floats<64>()
-                                         : dq_smem_floats<128>())
-                              : (D == 64 ? dkv_smem_floats<64>()
-                                         : dkv_smem_floats<128>());
+  const bool d64 = D == 64;
+  if (dtype == 1)
+    return (long long)(which == 0 ? (d64 ? fwd_tc_smem_bytes<64>()
+                                         : fwd_tc_smem_bytes<128>())
+                       : which == 1 ? (d64 ? dq_tc_smem_bytes<64>()
+                                           : dq_tc_smem_bytes<128>())
+                                    : (d64 ? dkv_tc_smem_bytes<64>()
+                                           : dkv_tc_smem_bytes<128>()));
+  const size_t f = which == 0 ? (d64 ? fwd_smem_floats<64>()
+                                     : fwd_smem_floats<128>())
+                 : which == 1 ? (d64 ? dq_smem_floats<64>()
+                                     : dq_smem_floats<128>())
+                              : (d64 ? dkv_smem_floats<64>()
+                                     : dkv_smem_floats<128>());
   return (long long)(f * sizeof(float));
 }
 
@@ -921,7 +1455,8 @@ extern "C" int flash_backward_dq(const void* q, const void* k, const void* v,
   if (!valid_shape(B, T, S, H, KH)) return (int)cudaErrorInvalidValue;
   Shape sh{B, T, S, H, KH, H / KH, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, dsum, dq, strides, sh, s);
+  RT_FLASH_DISPATCH2(bwd_dq, bwd_dq_tc, q, k, v, dout, lse, dsum, dq,
+                     strides, sh, s);
 }
 
 // strides in the order q, k, v, do. dk, dv [B, S, KH, D] are written
@@ -936,6 +1471,6 @@ extern "C" int flash_backward_dkv(const void* q, const void* k,
   if (!valid_shape(B, T, S, H, KH)) return (int)cudaErrorInvalidValue;
   Shape sh{B, T, S, H, KH, H / KH, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, dsum, dk, dv, strides, sh,
-                    s);
+  RT_FLASH_DISPATCH2(bwd_dkv, bwd_dkv_tc, q, k, v, dout, lse, dsum, dk, dv,
+                     strides, sh, s);
 }

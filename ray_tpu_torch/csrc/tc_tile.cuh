@@ -4,7 +4,7 @@
 // - cp.async: 16-byte copies from device to shared memory that run while the
 //   issuing warp computes, with zero-fill for rows past a tensor's end
 //   (src-size 0: nothing is read, 16 zero bytes are written), grouped by
-//   commit and awaited by wait_group.
+//   commit and awaited by wait_group; 4-byte copies for f32 statistics.
 // - ldmatrix: four 8 x 8 bf16 matrices from shared memory into the fragment
 //   layout of mma.sync, plain (rows of the stored tile are the fragment's
 //   rows) or .trans (transposed on the way).
@@ -38,6 +38,16 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, for rows of f32 statistics whose start need not be 16-byte
+// aligned; zero-filled as above.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -274,6 +274,87 @@ def _flash_backward_ref(q, k, v, out, lse, do, causal: bool = True):
     return (dq, *_flash_backward_dkv_ref(q, k, v, do, lse, dsum, causal))
 
 
+# m of _rounded_sum_bound: the bf16 roundings of an intermediate that may
+# flip, per output element, between two computations of the same sum.
+# Derivation: the kernels form s and dp on the tensor cores in another
+# order than the plain einsums, and exp by ex2.approx; the f32 values
+# before rounding typically differ by a relative 2^-20 or less (a few f32
+# ulps of the dot products' partial sums, 2^-22 from ex2.approx). A value
+# rounds the other way when it lies that close to a bf16 rounding
+# boundary, a chance of 2^-20 / 2^-8 = 2^-12 per term (twice that for ds,
+# whose dp - dsum cancels). Over n terms that is a Poisson count of mean
+# n 2^-11: 1 at n = 2048 (dq at T = S = 2048), 4 at n = 8192 (dk, dv at
+# G 8, T 1024); its largest value over the 2^20 - 2^24 outputs of such a
+# call is about 9 and 16. Each flip moves the sum by one bf16 ulp of a_c
+# times |b_c|, at most 2^-7 max|a| max|b|.
+_FLIP_TERMS = 16
+
+
+def _rounded_sum_bound(a: torch.Tensor, b: torch.Tensor, y_ref: torch.Tensor,
+                       a_err: torch.Tensor, flips: int = _FLIP_TERMS
+                       ) -> torch.Tensor:
+    """Elementwise bound on |y - y_ref| for y = a @ b, where a [..., R, C]
+    holds bf16-rounded intermediates (ds or p, in f32), b [..., C, N] the
+    bf16 operand, and y_ref [..., R, N] the plain result in bf16, when y
+    comes from the same math done in another order. Four terms: one bf16
+    ulp of |y_ref| (the final rounding); C 2^-24 (|a| @ |b|) (the f32 sum
+    reordered); flips 2^-7 max_c|a| max_c|b| (roundings of a that flipped,
+    row max times column max); a_err @ |b|, a_err [..., R, C] bounding the
+    f32 error of a before its rounding (where dp - dsum cancels, ds may
+    differ by more than its own ulp, and a row of such terms, like row 0
+    under the causal mask, has no larger term to carry the flips term).
+    Used by the card's checks of the bf16 backward kernels, never on the
+    main path."""
+    y = y_ref.float().abs()
+    ulp = torch.where(y > 0, torch.ldexp(torch.ones_like(y),
+                                         torch.frexp(y).exponent - 8), 0.0)
+    a, b = a.float().abs(), b.float().abs()
+    return (ulp + a.shape[-1] * 2.0 ** -24 * (a @ b) + a_err @ b
+            + flips * 2.0 ** -7 * a.amax(-1, keepdim=True)
+            * b.amax(-2, keepdim=True))
+
+
+def _flash_grad_bounds(q, k, v, do, lse, dsum, dq, dk, dv,
+                       causal: bool = True, flips: int = _FLIP_TERMS):
+    """_rounded_sum_bound for the plain backward's dq, dk, dv (given), in
+    their layouts: dq sums ds (rounded to k's dtype) times k over S; dk
+    and dv sum ds^T (q's dtype) times q and p^T (do's dtype) times do over
+    the G query heads of a group and T. The f32 error of p and ds before
+    rounding: each of the two orders of a dot product of D exact products
+    is within D 2^-24 sum|products|, so s scale within
+    e_s = 2 D 2^-24 scale (|q| @ |k|) and dp within e_dp = 2 D 2^-24
+    (|do| @ |v|); p within p (e_s + 2^-21) (ex2.approx, and the rounding
+    of its argument); ds within scale (p e_dp + |dp - dsum| e_p)."""
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = D ** -0.5
+    p, ds = _bwd_probs(q, k, v, do, lse, dsum, causal)     # [B, H, T, S]
+    kr, vr = _repeat_kv(k, H).float(), _repeat_kv(v, H).float()
+    dot_err = 2 * D * 2.0 ** -24
+    e_p = p * (dot_err * scale * torch.einsum(
+        "bthd,bshd->bhts", q.float().abs(), kr.abs()) + 2.0 ** -21)
+    e_dp = dot_err * torch.einsum("bthd,bshd->bhts", do.float().abs(),
+                                  vr.abs())
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), vr)
+    e_ds = scale * (p * e_dp + (dp - dsum[..., None]).abs() * e_p)
+    del dp, e_dp
+    b_dq = _rounded_sum_bound(ds.to(k.dtype), kr.transpose(1, 2),
+                              dq.transpose(1, 2), e_ds,
+                              flips).transpose(1, 2)
+
+    def over_group(a, err, x, y):   # a, err [B, H, T, S]; x [B, T, H, D]
+        def t(z):
+            return z.reshape(B, KH, G, T, S).permute(0, 1, 4, 2, 3).reshape(
+                B, KH, S, G * T)
+        x = x.transpose(1, 2).reshape(B, KH, G * T, D)
+        return _rounded_sum_bound(t(a), x, y.transpose(1, 2), t(err),
+                                  flips).transpose(1, 2)
+
+    return (b_dq, over_group(ds.to(q.dtype), e_ds, q, dk),
+            over_group(p.to(do.dtype), e_p, do, dv))
+
+
 def _check_flash_args(q, k, v, do=None, lse=None, dsum=None) -> None:
     """Refuse what the flash kernels do not take: shapes and dtypes first,
     then devices, then layout."""

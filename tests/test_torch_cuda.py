@@ -159,12 +159,23 @@ def test_xent_kernel_strided_rows_and_out_of_range_label(dev):
     (1, 129, 129, 8, 2, 128, True),
     (1, 100, 300, 4, 2, 64, True),       # causal S > T over 5 kv tiles
     (1, 200, 200, 16, 2, 128, True),     # D 128, G = 8
+    # Tile edges of the tensor-core backward (K4: 128 q rows at D 64, 64
+    # at D 128, 64 kv rows a tile; K5: 64 kv rows, 64 q rows a tile), and
+    # causal S < T (rows past S see every key).
+    (1, 63, 63, 4, 2, 64, True),
+    (1, 64, 64, 4, 2, 64, False),
+    (1, 63, 63, 4, 2, 128, True),
+    (1, 65, 65, 4, 2, 128, False),
+    (1, 300, 100, 4, 2, 64, True),
+    (1, 200, 70, 8, 2, 128, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(dev, B, T, S, H, KH, D, causal, dtype):
     """K3-K5 against the plain versions. f32: out/lse atol 1e-5, grads
     atol 1e-4 (summation order); bf16: atol = rtol = 2e-2 (p rounded to
-    bf16 against a running vs the final max; bf16 outputs)."""
+    bf16 against a running vs the final max; bf16 outputs), and the bf16
+    grads also within attention._flash_grad_bounds (roundings of p and ds
+    that flip when s and dp are summed in another order)."""
     g = _gen(T * S + D)
     q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, KH, D, generator=g, device=dev).to(dtype)
@@ -178,31 +189,43 @@ def test_flash_kernels_match_plain(dev, B, T, S, H, KH, D, causal, dtype):
     torch.testing.assert_close(out, ref_out, **tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
     dsum = attention._flash_dsum(ref_out, do)
-    torch.testing.assert_close(
-        attention.flash_backward_dq(q, k, v, do, ref_lse, dsum, causal),
-        attention._flash_backward_dq_ref(q, k, v, do, ref_lse, dsum, causal),
-        **gtol)
-    for got, want in zip(
-            attention.flash_backward_dkv(q, k, v, do, ref_lse, dsum, causal),
-            attention._flash_backward_dkv_ref(q, k, v, do, ref_lse, dsum,
-                                              causal)):
-        torch.testing.assert_close(got, want, **gtol)
+    _check_grads(q, k, v, do, ref_lse, dsum, causal, gtol)
+
+
+def _check_grads(q, k, v, do, lse, dsum, causal, gtol):
+    args = (q, k, v, do, lse, dsum, causal)
+    got = (attention.flash_backward_dq(*args),
+           *attention.flash_backward_dkv(*args))
+    want = (attention._flash_backward_dq_ref(*args),
+            *attention._flash_backward_dkv_ref(*args))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **gtol)
+    if q.dtype == torch.bfloat16:
+        bounds = attention._flash_grad_bounds(*args[:6], *want, causal=causal)
+        for g, w, b in zip(got, want, bounds):
+            assert ((g.float() - w.float()).abs() <= b).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_read_strided_views(dev, dtype):
-    """q/k/v as head slices of a fused [B, T, 3, H, D] projection: the
-    kernels read through the strides, no copies (in bf16 the forward's
-    cp.async loads do). Tolerances as in test_flash_kernels_match_plain."""
+    """q/k/v as head slices of a fused [B, T, 3, H, D] projection, and do
+    a head slice of a wider buffer: the kernels read through the strides,
+    no copies (in bf16 the cp.async loads do). Tolerances as in
+    test_flash_kernels_match_plain."""
     qkv = torch.randn(2, 80, 3, 4, 64, generator=_gen(3), device=dev)
     q, k, v = qkv.to(dtype).unbind(2)
-    assert not q.is_contiguous()
+    do = torch.randn(2, 80, 6, 64, generator=_gen(4),
+                     device=dev).to(dtype)[:, :, 1:5]
+    assert not q.is_contiguous() and not do.is_contiguous()
     out, lse = attention.flash_forward(q, k, v, True)
     ref_out, ref_lse = attention._flash_forward_ref(q, k, v, True)
     tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
            else dict(atol=2e-2, rtol=2e-2))
     torch.testing.assert_close(out, ref_out, **tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    _check_grads(q, k, v, do, ref_lse, attention._flash_dsum(ref_out, do),
+                 True, dict(atol=1e-4, rtol=1e-4)
+                 if dtype == torch.float32 else tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -217,6 +240,26 @@ def test_flash_forward_is_deterministic(dev, dtype):
         out1, lse1 = attention.flash_forward(q, k, v, causal)
         out2, lse2 = attention.flash_forward(q, k, v, causal)
         assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(dev, dtype, D):
+    """Two launches of K4 and of K5 on the same inputs give the same bits:
+    each block writes its own output tile once, no atomics."""
+    g = _gen(12)
+    q = torch.randn(2, 300, 8, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 300, 2, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 300, 2, D, generator=g, device=dev).to(dtype)
+    do = torch.randn(2, 300, 8, D, generator=g, device=dev).to(dtype)
+    for causal in (True, False):
+        out, lse = attention.flash_forward(q, k, v, causal)
+        args = (q, k, v, do, lse, attention._flash_dsum(out, do), causal)
+        dq1, dq2 = (attention.flash_backward_dq(*args) for _ in range(2))
+        (dk1, dv1), (dk2, dv2) = (attention.flash_backward_dkv(*args)
+                                  for _ in range(2))
+        assert torch.equal(dq1, dq2)
+        assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 def _grads_on(device, fn, *arrays):

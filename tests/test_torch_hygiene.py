@@ -1,4 +1,4 @@
-"""Boundaries of the port: ray_tpu_torch, chip_smoke.py and k3_variants.py
+"""Boundaries of the port: ray_tpu_torch, chip_smoke.py and flash_variants.py
 import no JAX and nothing of ray_tpu; entry points never run on the CPU
 unless asked; the CUDA wrappers never fall back to their plain versions."""
 
@@ -21,7 +21,7 @@ from ray_tpu_torch.serve import LMBackend
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "k3_variants.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_variants.py"]
 _FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 _PROBE = """
@@ -29,7 +29,7 @@ import importlib, pkgutil, sys
 import ray_tpu_torch
 for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     importlib.import_module(m.name)
-import chip_smoke, k3_variants
+import chip_smoke, flash_variants
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
 print("BAD", bad)
