@@ -15,8 +15,10 @@ it fails:
    instantiation of the f32 FMA kernels fails the run;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (and GQA, ragged,
-   tile-edge and small-page shapes), in f32 and bf16; the bf16 flash
-   gradients against a bound derived from the numerics;
+   tile-edge, split-edge, long-cache and small-page shapes), in f32 and
+   bf16; the bf16 flash gradients against a bound derived from the
+   numerics; the split decode kernels K6 and K7 twice on the same inputs
+   (the same bits), and K7 against K6 on the same rows (the same bits);
 3. the serving path at the flagship config's full width (vocab 32000,
    d_model 1024, 8 layers, 16 heads, bf16, 8 slots, max_seq 2048, random
    weights from a seed): one batched LMBackend call of 12 greedy requests,
@@ -44,7 +46,9 @@ it fails:
 7. timings (CUDA events) of each kernel, its plain version and the
    PyTorch library call that computes the same function, beside the
    kernel's least possible time on the card (the paged kernel also beside
-   the contiguous one on the same rows; the flash kernels also in f32, at
+   the contiguous one and SDPA on the same rows, at a median tick's short
+   lengths, ~600 and ~2000 rows, with the number of splits; the flash
+   kernels also in f32, at
    a GQA shape, and as TFLOP/s beside SDPA's forward and backward); the
    paged decode tick against the contiguous one; the train step's device
    time against its wall, and its kernels by name (torch.profiler), K3-K5
@@ -286,6 +290,22 @@ def decode_inputs(B, H, KH, D, S, lengths, dtype, seed: int):
     return q, k, v, lens
 
 
+def split_edges(B, KH, S, count):
+    """count lengths below S at the split edges of the decode kernels' plan
+    at B*KH (attention.decode_splits): a length whose last row is the first
+    row of a split (a split of one row) or the row before it (the last row
+    of the split before), spread over the ones there are."""
+    n_split = attention.decode_splits(B * KH)
+    edges = set()
+    for L in range(1, S):
+        plan = attention.split_plan(L, n_split)
+        if len(plan) > 1 and plan[-1][0] == L:
+            edges |= {L - 1, L}
+    edges = sorted(edges)
+    return [edges[round(i * (len(edges) - 1) / (count - 1))]
+            for i in range(count)]
+
+
 def check_kernels() -> dict:
     """Each kernel against its plain version on the same CUDA tensors.
     f32: RMSNorm rtol 1e-5 (atol 1e-6 near zero), decode atol 2e-5 — the
@@ -315,22 +335,32 @@ def check_kernels() -> dict:
                 errs["rms_norm"] = max(errs["rms_norm"], err)
             del x, w
     # Flagship decode shape (G=1, D=64) with lengths at 0, mid-tile, a tile
-    # edge and S-1; a GQA shape (G=8, D=128).
+    # edge and S-1, and at the edges of its splits; a GQA shape (G=8,
+    # D=128); a long cache, where many splits are live. Each split launch
+    # must give the same bits twice.
     flag_lens = [0, 31, 63, 64, 100, 1000, 2046, 2047]
     for (B, H, KH, D, S, lens), tag in (
             ((8, 16, 16, 64, 2048, flag_lens), "flagship"),
-            ((4, 32, 4, 128, 1024, [0, 511, 64, 1023]), "gqa")):
+            ((8, 16, 16, 64, 2048, split_edges(8, 16, 2048, 8)),
+             "split edges"),
+            ((4, 32, 4, 128, 1024, [0, 511, 64, 1023]), "gqa"),
+            ((2, 16, 16, 64, 8192, [8191, 5000]), "long cache")):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, ln = decode_inputs(B, H, KH, D, S, lens, dtype, seed=D)
             tol = (dict(atol=2e-5, rtol=0.0) if dtype == torch.float32
                    else dict(atol=2e-2, rtol=2e-2))
+            what = (f"decode_attention {tag} B={B} H={H} KH={KH} D={D} "
+                    f"S={S} {str(dtype)[6:]}, "
+                    f"{attention.decode_splits(B * KH)} splits")
+            got = attention.decode_attention(q, k, v, ln)
             err = check_close(
-                f"decode_attention {tag} B={B} H={H} KH={KH} D={D} S={S} "
-                f"{str(dtype)[6:]}",
-                attention.decode_attention(q, k, v, ln),
-                attention._decode_attention_ref(q, k, v, ln), **tol)
+                what, got, attention._decode_attention_ref(q, k, v, ln),
+                **tol)
+            if not torch.equal(attention.decode_attention(q, k, v, ln), got):
+                raise AssertionError(f"{what}: a second launch differs")
             if tag == "flagship" and dtype == torch.bfloat16:
                 errs["decode_attention"] = err
+            del q, k, v
     torch.cuda.synchronize()
     return errs
 
@@ -360,8 +390,11 @@ PAGED_SHAPES = (   # (tag, B, H, KH, D, page size, P, lengths; last idle)
     ("flagship", SLOTS, FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"],
      FLAGSHIP["d_model"] // FLAGSHIP["n_heads"], PAGE, MAX_SEQ // PAGE,
      [0, 127, 128, 600, 2047, 1000, 64, 0]),
+    ("split edges", SLOTS, 16, 16, 64, PAGE, MAX_SEQ // PAGE,
+     split_edges(SLOTS, 16, MAX_SEQ, SLOTS - 1) + [0]),
     ("gqa", 5, 32, 4, 128, 64, 16, [0, 63, 500, 1023, 0]),
     ("small page", 4, 8, 2, 64, 16, 16, [80, 127, 250, 0]),
+    ("long cache", 3, 16, 16, 64, PAGE, 64, [8191, 5000, 0]),
 )
 
 
@@ -371,7 +404,8 @@ def check_paged_kernel() -> dict:
     two differ only in summation order), bf16 atol = rtol = 2e-2 (the
     plain version rounds scores and probabilities to bf16). And K7 against
     K6 on the same rows gathered into a contiguous cache: equal bit for
-    bit, since both walk K6's tiles with K6's arithmetic."""
+    bit, since both split a sequence by K6's plan and walk K6's tiles with
+    K6's arithmetic; and to itself on a second launch."""
     errs = {}
     log("phase 2: paged decode kernel vs plain PyTorch on the card")
     for tag, B, H, KH, D, ps, P, lens in PAGED_SHAPES:
@@ -379,9 +413,13 @@ def check_paged_kernel() -> dict:
             q, kp, vp, table, ln = paged_inputs(B, H, KH, D, ps, P, lens,
                                                 dtype, seed=D + ps)
             what = (f"paged_decode_attention {tag} B={B} H={H} KH={KH} "
-                    f"D={D} ps={ps} P={P} {str(dtype)[6:]}")
+                    f"D={D} ps={ps} P={P} {str(dtype)[6:]}, "
+                    f"{attention.decode_splits(B * KH)} splits")
             got = paged_attention.paged_decode_attention(q, kp, vp, table,
                                                          ln)
+            if not torch.equal(paged_attention.paged_decode_attention(
+                    q, kp, vp, table, ln), got):
+                raise AssertionError(f"{what}: a second launch differs")
             tol = (dict(atol=2e-5, rtol=0.0) if dtype == torch.float32
                    else dict(atol=2e-2, rtol=2e-2))
             err = check_close(
@@ -1045,9 +1083,9 @@ def timings(main: dict, card: str) -> dict:
         library_ms=device_ms("SDPA", lambda q, k, v, ln, m: sdpa(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=m), sets, 100),
-        **bound(k6_bytes, k6_ops, bf16),
+        **bound(k6_bytes, k6_ops, bf16), lens=lens.tolist(),
         shape=f"B={B} H={H} KH={KH} D={D} S={S} bf16, lengths "
-              f"{lens.tolist()}")
+              f"{lens.tolist()}, {attention.decode_splits(B * KH)} splits")
     for name, t in out.items():
         lib = ("n/a" if t["library_ms"] is None
                else f"{t['library_ms'] * 1e3:.2f} us")
@@ -1064,11 +1102,14 @@ def timings(main: dict, card: str) -> dict:
     return out
 
 
-def paged_timings(paged: dict, card: str) -> dict:
+def paged_timings(paged: dict, short_lens: list, card: str) -> dict:
     """The paged decode tick against the contiguous one (wall and device
-    time at 8 active slots, on the same lengths), and K7 at the flagship
-    decode shape against its bound, its plain version, the library's
-    gather + SDPA and K6 on the same rows laid out contiguously."""
+    time at 8 active slots, on the same lengths), and K7 and K6 at the
+    flagship decode shape, at the short lengths of a median contiguous
+    tick (short_lens), at ~600 and at ~2000 rows: each beside its bound,
+    its plain version, the number of splits, and the library on the same
+    rows (K7: the gather + SDPA; K6: SDPA on the contiguous cache with a
+    length mask). The {"kernels": [...]} line takes K7 at ~600 rows."""
     log(f"phase 7: paged timings on {card}")
     probe, contig = paged["probe"], paged["contig"]
     eng = paged["backend"].engine
@@ -1106,14 +1147,15 @@ def paged_timings(paged: dict, card: str) -> dict:
     B, H, KH = SLOTS, FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"]
     D = FLAGSHIP["d_model"] // H
     P = MAX_SEQ // PAGE
+    n_split = attention.decode_splits(B * KH)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for target in (600, 2000):
-        lens = [target + i for i in range(B)]
+    for tag, lens in (("short", list(short_lens)),
+                      ("~600", [600 + i for i in range(B)]),
+                      ("~2000", [2000 + i for i in range(B)])):
         live = sum(L + 1 for L in lens)
         pages = sum(-(-(L + 1) // PAGE) for L in lens)
-        nbytes = (2 * live * KH * D * 2 + 2 * B * H * D * 2 + 4 * pages
-                  + 4 * B)
+        kv_bytes = 2 * live * KH * D * 2 + 2 * B * H * D * 2 + 4 * B
         sets = []
         for i in range(n_copies(2 * live * KH * D * 2)):
             q, kp, vp, table, ln = paged_inputs(B + 1, H, KH, D, PAGE, P,
@@ -1142,15 +1184,24 @@ def paged_timings(paged: dict, card: str) -> dict:
             k6_ms=device_ms("decode_attention on the same rows", lambda *a:
                             attention.decode_attention(a[0], a[5], a[6],
                                                        a[4]), sets, 200),
-            **bound(nbytes, 4 * live * H * D, bf16),
+            k6_library_ms=device_ms(
+                "SDPA on the same rows", lambda q, kp, vp, table, ln, kc, vc,
+                mask: sdpa(q[:, :, None], kc.transpose(1, 2),
+                           vc.transpose(1, 2), attn_mask=mask), sets, 100),
+            k6_bound_ms=bound(kv_bytes, 4 * live * H * D, bf16)["bound_ms"],
+            **bound(kv_bytes + 4 * pages, 4 * live * H * D, bf16),
             shape=f"B={B} H={H} KH={KH} D={D} ps={PAGE} P={P} bf16, "
-                  f"lengths {lens[0]}-{lens[-1]}")
+                  f"lengths {lens[0]}-{lens[-1]} ({tag}), {n_split} splits")
         log(f"  paged_decode_attention at {t['shape']}: kernel "
-            f"{t['ms'] * 1e3:.2f} us, K6 on the same rows "
-            f"{t['k6_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+            f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
             f"paged_gather + SDPA {t['library_ms'] * 1e3:.2f} us, bound "
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
-        out.setdefault("paged_decode_attention", t)
+        log(f"  decode_attention on the same rows laid out contiguously "
+            f"({tag}): kernel {t['k6_ms'] * 1e3:.2f} us, SDPA with a length "
+            f"mask {t['k6_library_ms'] * 1e3:.2f} us, bound "
+            f"{t['k6_bound_ms'] * 1e3:.3f} us (bytes) [{card}]")
+        if tag == "~600":
+            out["paged_decode_attention"] = t
         del sets
         torch.cuda.empty_cache()
     return out
@@ -1404,7 +1455,8 @@ def main() -> int:
     train = train_path(card)
     train_card_vs_cpu()
     times = timings(main, card)
-    times.update(paged_timings(paged, card))
+    times.update(paged_timings(paged, times["decode_attention"]["lens"],
+                               card))
     times.update(train_timings(card))
     train_breakdown(card, train["step_ms"])
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the bf16 flash-attention kernels K3 (forward), K4 (dq)
-and K5 (dk/dv) on one NVIDIA card.
+and K5 (dk/dv), and of the split flash-decode kernels K6 and K7, on one
+NVIDIA card.
 
     python3 flash_variants.py
 
@@ -17,6 +18,19 @@ summation order and must stay within attention._flash_grad_bounds of the
 plain version; "diagnostic" variants skip part of the work and give wrong
 results, and measure what that part costs. A kernel that spills at a
 head dim is reported and not timed at that head dim.
+
+Then the decode kernels: each DECODE_VARIANTS entry is
+ray_tpu_torch/csrc/decode_tile.cuh (K6's and K7's shared block body) with
+a few lines replaced, built with both kernels' sources; each is launched
+with the number of splits the wrappers take (attention.decode_splits) and
+the source also with each of DECODE_SPLITS (1 is the sequential walk of
+one block per sequence and kv head), at the flagship decode shape (B 8,
+H = KH 16, D 64, bf16, page 128) with lengths of a short tick, ~600 and
+~2000 rows, and at a GQA shape (B 4, H 32, KH 4, D 128, page 64, ~1000
+rows), K6 and K7 in turns. Before it is timed, each variant must give the
+source's bits at the same number of splits, each number of splits must
+hold the plain version to the bf16 tolerance (atol = rtol = 2e-2), and K7
+must give K6's bits.
 """
 
 from __future__ import annotations
@@ -31,7 +45,7 @@ import torch
 
 import chip_smoke as cs
 from ray_tpu_torch._kernels import build
-from ray_tpu_torch.ops import attention
+from ray_tpu_torch.ops import attention, paged_attention
 
 SRC = build.CSRC / "flash_attention.cu"
 _K3_BOUNDS = "__launch_bounds__(32 * tc_warps<D>(), TC_MIN_BLOCKS)"
@@ -172,12 +186,191 @@ def check(name: str, lib, which: str, tag: str, args, want, bounds) -> None:
                 raise AssertionError(f"{name} at {tag}: outside the bound")
 
 
+# ------------------------------------------------- decode kernels K6, K7
+
+DECODE_TILE = build.CSRC / "decode_tile.cuh"
+_L2_256 = """namespace decode_tile {
+__device__ __forceinline__ void cp_async_16_l2(void* dst, const void* src,
+                                               bool) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\\n" ::
+               "r"(tc_tile::smem_addr(dst)), "l"(src) : "memory");
+}
+"""
+# name -> (kind, [(text in decode_tile.cuh or a decode source, its
+# replacement)]): "same" variants must give the source's bits;
+# "diagnostic" ones skip or move work, give wrong results, and measure
+# what that work costs.
+DECODE_VARIANTS = {
+    "source": ("same", []),
+    "1 stage (no cp.async prefetch)": ("same", [(
+        "constexpr int STAGES = 2;", "constexpr int STAGES = 1;")]),
+    "3 stages": ("same", [
+        ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")]),
+    "L2 prefetch of 256 B a copy": ("same", [
+        ("namespace decode_tile {", _L2_256),
+        ("tc_tile::cp_async_16(k_s", "cp_async_16_l2(k_s"),
+        ("tc_tile::cp_async_16(v_s", "cp_async_16_l2(v_s")]),
+    "tile copies only (no score or PV arithmetic)": ("diagnostic", [
+        ("for (int e = tid; e < G * TK; e += THREADS) {",
+         "for (int e = tid; e < 0; e += THREADS) {"),
+        ("for (int j = 0; j < n; ++j) a += ",
+         "for (int j = 0; j < 0; ++j) a += ")]),
+    # K6 reads the same bytes as if the cache were [B, KH, S, D]: a kv
+    # head's rows lie together, not 128-byte pieces 2 KB apart.
+    "K6 reads the cache as [B, KH, S, D]": ("diagnostic", [
+        ("k + (size_t)b * k_sb + (size_t)kh * D,",
+         "k + (size_t)b * k_sb + (size_t)kh * D * S,"),
+        ("v + (size_t)b * v_sb + (size_t)kh * D,",
+         "v + (size_t)b * v_sb + (size_t)kh * D * S,"),
+        ("ContiguousRows{k_ss, v_ss}", "ContiguousRows{D, D}")]),
+}
+DECODE_SOURCES = ("decode_attention", "paged_decode_attention")
+DECODE_SPLITS = (1, 2, 3, 4, 5, 6, 8, 16)
+# tag -> (B, H, KH, D, page size, max pages, lengths)
+DECODE_SHAPES = {
+    "short": (8, 16, 16, 64, 128, 16, [32 + 4 * i for i in range(8)]),
+    "~600": (8, 16, 16, 64, 128, 16, [600 + i for i in range(8)]),
+    "~2000": (8, 16, 16, 64, 128, 16, [2000 + i for i in range(8)]),
+    "gqa ~1000": (4, 32, 4, 128, 64, 16, [1000, 1008, 1016, 1023]),
+}
+
+
+def build_decode(tmp: Path) -> dict:
+    """{name: (K6 library, K7 library)}, one nvcc per source and variant,
+    all at once."""
+    files = [DECODE_TILE.name] + [f"{src}.cu" for src in DECODE_SOURCES]
+    procs = {}
+    for i, (name, (_, subs)) in enumerate(DECODE_VARIANTS.items()):
+        texts = {f: (build.CSRC / f).read_text() for f in files}
+        for old, new in subs:
+            if not any(old in t for t in texts.values()):
+                raise SystemExit(f"{name}: {old!r} is in no decode source")
+            texts = {f: t.replace(old, new) for f, t in texts.items()}
+        d = tmp / f"decode{i}"
+        d.mkdir()
+        for hdr in build.CSRC.glob("*.cuh"):
+            (d / hdr.name).write_text(texts.get(hdr.name, hdr.read_text()))
+        for src in DECODE_SOURCES:
+            (d / f"{src}.cu").write_text(texts[f"{src}.cu"])
+            procs[name, src] = (subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                 str(d / f"{src}.so"), str(d / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                d / f"{src}.so")
+    libs = {}
+    sigs = {"decode_attention": attention._SIGNATURES,
+            "paged_decode_attention": paged_attention._SIGNATURES}
+    for (name, src), (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name} {src}:\n{log}")
+        regs = [f"{r.get('registers')} regs/{r.get('spill_stores')} B "
+                "spilled" for _, r in sorted(cs.ptxas_report(log).items())]
+        print(f"{name} {src}: {', '.join(regs)}", flush=True)
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in sigs[src].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs.setdefault(name, {})[src] = lib
+    return {name: (d["decode_attention"], d["paged_decode_attention"])
+            for name, d in libs.items()}
+
+
+def decode_args(B, H, KH, D, ps, P, lengths, seed):
+    """bf16 q, a contiguous cache [B, P * ps, KH, D] and the same rows as
+    a pool of pages in order, with its table."""
+    q, k, v, ln = cs.decode_inputs(B, H, KH, D, P * ps, lengths,
+                                   torch.bfloat16, seed)
+    table = torch.arange(B * P, dtype=torch.int32,
+                         device="cuda").reshape(B, P)
+    return (q, k, v, ln, k.view(B * P, ps, KH, D), v.view(B * P, ps, KH, D),
+            table)
+
+
+def decode_launch(libs, kernel: str, n_split: int, args, out, scratch):
+    """One bf16 launch of K6 or K7 from libs = (K6 library, K7 library),
+    split n_split ways, into out."""
+    q, k, v, ln, kp, vp, table = args
+    part, tickets = scratch
+    B, H, D = q.shape
+    KH = k.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "K6":
+        err = libs[0].decode_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(),
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B,
+            k.shape[1], KH, H // KH, D, n_split, k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), float(D ** -0.5), 1, stream)
+    else:
+        err = libs[1].paged_decode_attention_forward(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            ln.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), B, table.shape[1], kp.shape[1], kp.shape[0],
+            KH, H // KH, D, n_split, table.stride(0), kp.stride(0),
+            kp.stride(1), vp.stride(0), vp.stride(1), float(D ** -0.5), 1,
+            stream)
+    if err:
+        raise RuntimeError(f"{kernel}: CUDA error {err}")
+
+
+def decode_main(tmp: Path, card: str) -> None:
+    libs = build_decode(tmp)
+    tickets = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    for tag, (B, H, KH, D, ps, P, lens) in DECODE_SHAPES.items():
+        policy = attention.decode_splits(B * KH)
+        live = sum(L + 1 for L in lens)
+        nbytes = 2 * live * KH * D * 2
+        sets = [decode_args(B, H, KH, D, ps, P, lens, seed=900 + i)
+                for i in range(cs.n_copies(nbytes))]
+        a0 = sets[0]
+        want = attention._decode_attention_ref(*a0[:4])
+        out = torch.empty_like(a0[0])
+        splits = sorted({policy, *DECODE_SPLITS})
+        part = torch.empty(B * KH * max(splits) * (H // KH * D + 2 * H // KH),
+                           device="cuda")
+        runs = [("source", n) for n in splits] + [
+            (name, policy) for name in DECODE_VARIANTS if name != "source"]
+        bits = {}
+        for name, n in runs:   # the checks, before any timing
+            if DECODE_VARIANTS[name][0] == "diagnostic":
+                continue
+            for kernel in ("K6", "K7"):
+                decode_launch(libs[name], kernel, n, a0, out, (part, tickets))
+                got = out.clone()
+                ref = bits.setdefault(n, got)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"{name}, {n} splits, {kernel} at {tag}: not the "
+                        f"source's K6 bits at {n} splits")
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+        times = {}
+        for name, n in runs + runs[::-1]:
+            for kernel in ("K6", "K7"):
+                times.setdefault((name, n, kernel), []).append(cs.device_ms(
+                    f"{name} {n} {kernel} {tag}", lambda *a, lib=libs[name],
+                    kern=kernel, n=n: decode_launch(
+                        lib, kern, n, a, out, (part, tickets)), sets, 200,
+                    sleep_cycles=100_000_000))
+        bnd = (nbytes + 2 * B * H * D * 2) / cs.HBM_BYTES_PER_S * 1e6
+        print(f"decode {tag}: B={B} H={H} KH={KH} D={D} ps={ps} bf16, "
+              f"lengths {lens[0]}-{lens[-1]}, bound {bnd:.3f} us (bytes), "
+              f"the wrappers' {policy} splits [{card}]:", flush=True)
+        for (name, n, kernel), ms in times.items():
+            print(f"  {name} ({DECODE_VARIANTS[name][0]}), {n} splits, "
+                  f"{kernel}: {ms[0] * 1e3:.2f}, {ms[1] * 1e3:.2f} us",
+                  flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("flash_variants: no CUDA device is available")
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        decode_main(Path(tmp), card)
         libs = build_all(Path(tmp))
         src = libs["source"][0]
         for tag, (B, T, H, KH, D) in SHAPES.items():

@@ -202,7 +202,8 @@ class GenerationEngine:
     def __init__(self, params: Params, cfg: TransformerConfig, *,
                  max_slots: int = 4, max_seq: Optional[int] = None,
                  eos_id: Optional[int] = None, speculative_k: int = 0,
-                 mesh=None, prefill_chunk: int = 0, device: Device = None):
+                 speculative_ngram: int = 2, mesh=None,
+                 prefill_chunk: int = 0, device: Device = None):
         if int(speculative_k) > 0:
             raise NotImplementedError(
                 "speculative decoding (speculative_k > 0) is not ported yet; "
@@ -214,6 +215,11 @@ class GenerationEngine:
         self.device = default_device(device)
         self.cfg = cfg
         self.slots = max_slots
+        # N-gram speculative decoding's knobs, as the JAX engine keeps them;
+        # with speculative_k 0 (the only value taken) the n-gram order is
+        # inert there too.
+        self.speculative_k = int(speculative_k)
+        self.speculative_ngram = int(speculative_ngram)
         self.max_seq = max_seq or cfg.max_seq_len
         self.eos_id = eos_id
         # Weights in the compute dtype on the device, cast once.

@@ -180,11 +180,12 @@ class PagedGenerationEngine(GenerationEngine):
                  max_slots: int = 4, max_seq: Optional[int] = None,
                  eos_id: Optional[int] = None, page_size: int = 128,
                  num_pages: Optional[int] = None, speculative_k: int = 0,
-                 prefill_chunk: int = 0, mesh=None, device: Device = None):
+                 speculative_ngram: int = 2, prefill_chunk: int = 0,
+                 mesh=None, device: Device = None):
         super().__init__(params, cfg, max_slots=max_slots, max_seq=max_seq,
                          eos_id=eos_id, speculative_k=speculative_k,
-                         mesh=mesh, prefill_chunk=prefill_chunk,
-                         device=device)
+                         speculative_ngram=speculative_ngram, mesh=mesh,
+                         prefill_chunk=prefill_chunk, device=device)
         L, KH, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         self.page_size = ps = page_size
         self.pages_per_slot = -(-self.max_seq // ps)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,9 +32,8 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 _F = ctypes.c_float
 _SIGNATURES = {
     "decode_attention_forward": (
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-         ctypes.c_float, _I, _P], _I),
-    "decode_attention_smem_bytes": ([_I, _I], _L),
+        [_P] * 7 + [_I] * 6 + [_L] * 4 + [_F, _I, _P], _I),
+    "decode_attention_smem_bytes": ([_I, _I, _I], _L),
 }
 _FLASH_SIGNATURES = {
     "flash_forward": ([_P] * 5 + [_I] * 6 + [_LL, _F, _I, _I, _P], _I),
@@ -102,6 +101,59 @@ def _decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return masked_gqa_attention(q[:, None], k, v, mask)[:, 0]
 
 
+# Split-K of the flash-decode kernels K6 and K7 (csrc/decode_tile.cuh).
+_DECODE_TILE = 64        # cache rows per tile
+# Blocks the split aims at, about 4 on each of an H100's 132 SMs; 512 by
+# timing (flash_variants.py): at B*KH = 128 it gives 4 splits, which beat 5
+# at ~600 and ~2000 rows.
+_SPLIT_BLOCKS = 512
+_MAX_SPLIT = 32          # the kernels take up to 64
+
+
+def decode_splits(bkh: int) -> int:
+    """Blocks per (sequence, kv head) of the flash-decode kernels K6 and
+    K7: enough that the B*KH (sequence, kv head) pairs fill an H100 (132
+    SMs) about four blocks deep. One function of a shape both kernels know,
+    never of the cache's length, the page size or the card it runs on, so
+    K7 on a page table gives K6's bits on the same rows, on every card."""
+    return max(1, min(_MAX_SPLIT, -(-_SPLIT_BLOCKS // bkh)))
+
+
+def split_plan(length: int, n_split: int) -> List[Tuple[int, int]]:
+    """The live splits of one sequence under the kernels' split plan
+    (``split_range`` in csrc/decode_tile.cuh), as (first row, last row),
+    inclusive: the length // 64 + 1 live tiles in runs of ceil(tiles /
+    n_split), split 0 first; the splits past them are empty."""
+    tiles = length // _DECODE_TILE + 1
+    per = -(-tiles // n_split)
+    return [(t * _DECODE_TILE, min((t + per) * _DECODE_TILE, length + 1) - 1)
+            for t in range(0, tiles, per)]
+
+
+# Per (device, stream): the kernels' split tickets, int32, 0 between
+# launches (the block that merges a (sequence, kv head) resets its ticket).
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _decode_split(q: torch.Tensor, bkh: int, G: int,
+                  D: int) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """The number of splits (``decode_splits``) and the split kernels'
+    scratch on q's device: the partials, one ``torch.empty`` from the
+    caching allocator (every value the merge reads is written first in the
+    same launch), and the tickets of the current stream, zeroed once when
+    first made or grown."""
+    n_split = decode_splits(bkh)
+    partials = torch.empty(bkh * n_split * (G * D + 2 * G),
+                           dtype=torch.float32, device=q.device)
+    key = (q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < bkh:
+        tickets = torch.zeros(max(bkh, 1024), dtype=torch.int32,
+                              device=q.device)
+        _TICKETS[key] = tickets
+    return n_split, partials, tickets
+
+
 def _check_decode_args(q, k, v, lengths) -> None:
     ts = (q, k, v, lengths)
     if not all(t.is_cuda for t in ts):
@@ -157,19 +209,20 @@ def _decode_attention_cuda(q, k, v, lengths) -> torch.Tensor:
     S, KH = k.shape[1], k.shape[2]
     G = H // KH
     lib = load("decode_attention", _SIGNATURES)
-    smem = lib.decode_attention_smem_bytes(G, D)
+    smem = lib.decode_attention_smem_bytes(G, D, _DTYPES[q.dtype])
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"decode_attention: G={G}, D={D} needs {smem} bytes of shared "
             f"memory per block, above the card's {_SMEM_LIMIT}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        n_split, partials, tickets = _decode_split(q, B * KH, G, D)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, S, KH, G, D, k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), float(D ** -0.5), _DTYPES[q.dtype],
-            stream)
+            out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), B, S,
+            KH, G, D, n_split, k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), float(D ** -0.5), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"decode_attention kernel launch failed: CUDA error {err}")

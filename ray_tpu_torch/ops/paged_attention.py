@@ -8,12 +8,13 @@ page granules on demand, so N concurrent sequences cost
 sum(ceil(len_i/page_size)) pages instead of N * max_seq rows.
 
 ``paged_decode_attention`` is the wrapper of kernel K7
-(``csrc/paged_decode_attention.cu``): K6's flash-decode loop reading each
-logical row through the page table. CUDA tensors go through the kernel
-(``paged_decode_attention.launches`` counts its launches), CPU tensors
-through the plain version, which gathers the pages into the contiguous
-layout and delegates to ``masked_gqa_attention``, as the JAX package's XLA
-path does. It never falls back from the one to the other.
+(``csrc/paged_decode_attention.cu``): K6's split flash-decode blocks, with
+K6's split plan, reading each logical row through the page table. CUDA
+tensors go through the kernel (``paged_decode_attention.launches`` counts
+its launches), CPU tensors through the plain version, which gathers the
+pages into the contiguous layout and delegates to
+``masked_gqa_attention``, as the JAX package's XLA path does. It never
+falls back from the one to the other.
 
 ``PagePool`` is host-side bookkeeping, the JAX package's copied whole.
 ``write_paged`` updates the pool IN PLACE (JAX returns a new array).
@@ -27,13 +28,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .attention import _DTYPES, _SMEM_LIMIT, masked_gqa_attention
+from .attention import (_DTYPES, _SMEM_LIMIT, _decode_split,
+                        masked_gqa_attention)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "paged_decode_attention_forward": (
-        [_P] * 6 + [_I] * 7 + [_L] * 5 + [ctypes.c_float, _I, _P], _I),
-    "paged_decode_attention_smem_bytes": ([_I, _I], _L),
+        [_P] * 8 + [_I] * 8 + [_L] * 5 + [ctypes.c_float, _I, _P], _I),
+    "paged_decode_attention_smem_bytes": ([_I, _I, _I], _L),
 }
 
 
@@ -146,18 +148,21 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths):
     P = page_table.shape[1]
     G = H // KH
     lib = load("paged_decode_attention", _SIGNATURES)
-    smem = lib.paged_decode_attention_smem_bytes(G, D)
+    smem = lib.paged_decode_attention_smem_bytes(G, D, _DTYPES[q.dtype])
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"paged_decode_attention: G={G}, D={D} needs {smem} bytes of "
             f"shared memory per block, above the card's {_SMEM_LIMIT}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
+        # K6's number of splits, so K6's plan and bits.
+        n_split, partials, tickets = _decode_split(q, B * KH, G, D)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_decode_attention_forward(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, P,
-            ps, num_pages, KH, G, D, page_table.stride(0),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), tickets.data_ptr(), B, P, ps, num_pages, KH,
+            G, D, n_split, page_table.stride(0),
             k_pages.stride(0), k_pages.stride(1), v_pages.stride(0),
             v_pages.stride(1), float(D ** -0.5), _DTYPES[q.dtype], stream)
     if err != 0:

@@ -25,7 +25,8 @@ outputs are the same.
 
 Left for later slices, and refused here with NotImplementedError: tensor
 parallelism (``tp > 1``) and speculative decoding (``speculative_k > 0``,
-refused by the engines).
+refused by the engines; ``speculative_ngram``, its n-gram order, is taken
+as in the JAX package and is inert while ``speculative_k`` is 0).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ class LMBackend:
                  stream_idle_timeout_s: float = 120.0,
                  paged: bool = False, page_size: int = 128,
                  num_pages: Optional[int] = None, speculative_k: int = 0,
-                 tp: int = 1, prefill_chunk: int = 0,
+                 speculative_ngram: int = 2, tp: int = 1,
+                 prefill_chunk: int = 0,
                  device: Device = None):
         if tp > 1:
             raise NotImplementedError(
@@ -71,12 +73,14 @@ class LMBackend:
             self.engine = PagedGenerationEngine(
                 params, cfg, max_slots=max_slots, eos_id=eos_id,
                 max_seq=max_seq, page_size=page_size, num_pages=num_pages,
-                speculative_k=speculative_k, prefill_chunk=prefill_chunk,
-                device=device)
+                speculative_k=speculative_k,
+                speculative_ngram=speculative_ngram,
+                prefill_chunk=prefill_chunk, device=device)
         else:
             self.engine = GenerationEngine(
                 params, cfg, max_slots=max_slots, eos_id=eos_id,
                 max_seq=max_seq, speculative_k=speculative_k,
+                speculative_ngram=speculative_ngram,
                 prefill_chunk=prefill_chunk, device=device)
         self.default_max_new_tokens = default_max_new_tokens
         self.stream_idle_timeout_s = stream_idle_timeout_s

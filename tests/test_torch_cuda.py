@@ -57,12 +57,36 @@ def test_rms_norm_kernel_unaligned_rows_take_scalar_loads(dev):
                                rtol=1e-5)
 
 
+def _split_edges(B, KH, S, count):
+    """count lengths below S at the split edges of the decode kernels' plan
+    at B*KH (attention.decode_splits): a length whose last row is the first
+    row of a split (a split of one row) or the row before it (the last row
+    of the split before), spread over the ones there are."""
+    n_split = attention.decode_splits(B * KH)
+    edges = set()
+    for L in range(1, S):
+        plan = attention.split_plan(L, n_split)
+        if len(plan) > 1 and plan[-1][0] == L:
+            edges |= {L - 1, L}
+    edges = sorted(edges)
+    return [edges[round(i * (len(edges) - 1) / (count - 1))]
+            for i in range(count)]
+
+
 @pytest.mark.parametrize("B,H,KH,D,S,lengths", [
     (2, 6, 2, 128, 100, [99, 0]),        # G = 3, S not a tile multiple
     (3, 4, 4, 64, 65, [63, 64, 1]),      # tile edges
     (1, 16, 1, 64, 300, [200]),          # MQA, G = 16
+    (8, 16, 16, 64, 2048, _split_edges(8, 16, 2048, 8)),   # 4 splits
+    (4, 32, 4, 128, 1024, [0, 511, 64, 1023]),   # GQA G = 8: 32 splits
+    (2, 16, 16, 64, 8192, [8191, 5000]),   # long cache: 16 splits
+    (2, 8, 8, 64, 300, [299, 350]),      # S - 1, and past it (clamped)
 ])
 def test_decode_kernel_matches_plain_f32(dev, B, H, KH, D, S, lengths):
+    """K6 against its plain version (atol 2e-5: summation order), split
+    over blocks as the wrapper's plan says, and a second launch on the same
+    inputs gives the same bits (the merge's order is the splits', not
+    their arrival's)."""
     g = _gen(S)
     q = torch.randn(B, H, D, generator=g, device=dev)
     # Strided views: rows of a wider pool, as a layer slice of the cache.
@@ -70,9 +94,11 @@ def test_decode_kernel_matches_plain_f32(dev, B, H, KH, D, S, lengths):
     pool_v = torch.randn(2, B, S + 7, KH, D, generator=g, device=dev)
     k, v = pool_k[1, :, :S], pool_v[1, :, :S]
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = attention.decode_attention(q, k, v, lens)
     torch.testing.assert_close(
-        attention.decode_attention(q, k, v, lens),
-        attention._decode_attention_ref(q, k, v, lens), atol=2e-5, rtol=0)
+        got, attention._decode_attention_ref(q, k, v, lens), atol=2e-5,
+        rtol=0)
+    assert torch.equal(attention.decode_attention(q, k, v, lens), got)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -375,9 +401,12 @@ def _paged_inputs(B, H, KH, D, ps, P, lengths, dtype, seed):
 
 _PAGED_SHAPES = [   # (B, H, KH, D, ps, P, lengths): chip_smoke's phase 2
     (6, 16, 16, 64, 128, 16, [0, 127, 128, 600, 2047, 0]),   # flagship
-    (4, 32, 4, 128, 64, 16, [0, 63, 500, 1023]),             # GQA, G = 8
+    (4, 32, 4, 128, 64, 16, [0, 63, 500, 1023]),    # GQA, G = 8: 32 splits
     (3, 8, 2, 64, 16, 8, [80, 127, 3]),                      # small page
     (3, 16, 1, 128, 32, 4, [127, 200, 0]),   # MQA, length past P*ps - 1
+    (8, 16, 16, 64, 128, 16,                 # 4 splits: their edges
+     _split_edges(8, 16, 2048, 7) + [0]),
+    (3, 16, 16, 64, 128, 64, [8191, 5000, 0]),   # long: 11 splits
 ]
 
 
@@ -387,9 +416,9 @@ def test_paged_decode_kernel_matches_plain(dev, B, H, KH, D, ps, P, lengths,
                                            dtype):
     """K7 against its plain version (f32 atol 2e-5: summation order; bf16
     atol = rtol = 2e-2: the plain version rounds scores to bf16), the last
-    row idle (length 0, a table of -1), and bit for bit equal to K6 on the
-    same rows gathered into a contiguous cache (same tiles, same
-    arithmetic)."""
+    row idle (length 0, a table of -1), bit for bit equal to K6 on the
+    same rows gathered into a contiguous cache (same split plan, tiles and
+    arithmetic), and to itself on a second launch."""
     from ray_tpu_torch.ops import paged_attention as pa
 
     q, k, v, table, lens = _paged_inputs(B, H, KH, D, ps, P, lengths, dtype,
@@ -402,13 +431,14 @@ def test_paged_decode_kernel_matches_plain(dev, B, H, KH, D, ps, P, lengths,
         tol = (dict(atol=2e-5, rtol=0) if dtype == torch.float32
                else dict(atol=2e-2, rtol=2e-2))
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        if P * ps <= 4096:
-            # K6 attends at most S - 1; clamp as K7 clamps at P * ps - 1.
-            kc = pa.paged_gather(k, table).contiguous()
-            vc = pa.paged_gather(v, table).contiguous()
-            k6 = attention.decode_attention(
-                q, kc, vc, lens.clamp_max(P * ps - 1))
-            assert torch.equal(got, k6)
+        assert torch.equal(pa.paged_decode_attention(q, k, v, table, lens),
+                           got)
+        # K6 attends at most S - 1; clamp as K7 clamps at P * ps - 1.
+        kc = pa.paged_gather(k, table).contiguous()
+        vc = pa.paged_gather(v, table).contiguous()
+        k6 = attention.decode_attention(q, kc, vc,
+                                        lens.clamp_max(P * ps - 1))
+        assert torch.equal(got, k6)
 
 
 def test_paged_decode_kernel_refuses_grad_and_bad_args(dev):

@@ -211,6 +211,10 @@ def test_unported_features_raise_naming_the_slice(model):
         LMBackend(tparams, tcfg, paged=True, tp=2, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMBackend(tparams, tcfg, tp=2, device=CPU)
+    for paged in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LMBackend(tparams, tcfg, paged=paged, speculative_k=2,
+                      speculative_ngram=3, device=CPU)
 
 
 # ------------------------------------------------------------ LMBackend
@@ -229,6 +233,26 @@ def test_lm_backend_batch_call_matches_jax(model):
         [_t_ref(tcfg, tparams, [4, 5], 6)]
     st = b.stats()
     assert st["slots"] == 2 and st["active"] == 0 and not st["poisoned"]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lm_backend_speculative_ngram_serves_jax_tokens(model, paged):
+    """speculative_ngram is taken as the JAX LMBackend takes it and, with
+    speculative_k 0, is inert: the same greedy tokens as JAX's backend
+    given the same arguments."""
+    from ray_tpu.serve.config import ServeRequest as JServeRequest
+    from ray_tpu.serve.lm import LMBackend as JLMBackend
+
+    jcfg, jparams, tcfg, tparams = model
+    kw = dict(max_slots=2, paged=paged, page_size=16, speculative_k=0,
+              speculative_ngram=3)
+    b = LMBackend(tparams, tcfg, device=CPU, **kw)
+    assert b.engine.speculative_ngram == 3 and b.engine.speculative_k == 0
+    prompts = [[i + 1, i + 2, i + 1, i + 2] for i in range(3)]
+    got = b([ServeRequest((p,), {"max_new_tokens": 5}) for p in prompts])
+    want = JLMBackend(jparams, jcfg, **kw)(
+        [JServeRequest((p,), {"max_new_tokens": 5}) for p in prompts])
+    assert got == want
 
 
 def test_lm_backend_token_streaming(model):

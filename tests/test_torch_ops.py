@@ -127,6 +127,36 @@ def test_decode_wrapper_on_cpu_is_uncounted():
     assert tatt.decode_attention.launches == before
 
 
+@pytest.mark.parametrize("n_split", [1, 2, 5, 17, 32])
+def test_decode_split_plan_covers_each_live_tile_once(n_split):
+    """The split plan of the decode kernels K6 and K7 (mirrored from
+    csrc/decode_tile.cuh): at every length its live splits cover rows
+    0..length once, in order, in whole 64-row tiles but the last; split 0
+    holds row 0; there are at most n_split, all of one run of tiles but
+    the last, whose first row is a row the sequence attends."""
+    for length in list(range(0, 700)) + list(range(700, 8192, 37)) + [8191]:
+        plan = tatt.split_plan(length, n_split)
+        assert 1 <= len(plan) <= n_split and plan[0][0] == 0
+        assert plan[-1][1] == length
+        for (a, b), (c, _) in zip(plan, plan[1:]):
+            assert c == b + 1 and c % 64 == 0
+        runs = {b - a + 1 for a, b in plan[:-1]}
+        assert len(runs) <= 1 and all(r % 64 == 0 for r in runs)
+
+
+def test_decode_split_count_is_one_function_for_k6_and_k7():
+    """K6 and K7 take their number of splits from one function of B*KH
+    (through one scratch helper), so the paged kernel splits a sequence as
+    the contiguous one does."""
+    from ray_tpu_torch.ops import paged_attention as tpa
+
+    assert tpa._decode_split is tatt._decode_split
+    for bkh in (1, 8, 16, 128, 528, 1000):
+        n = tatt.decode_splits(bkh)
+        assert 1 <= n <= 32
+        assert n == 32 or bkh * n >= tatt._SPLIT_BLOCKS > bkh * (n - 1)
+
+
 # -------------------------------------------------- plain attention math
 
 
