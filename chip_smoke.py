@@ -19,27 +19,33 @@ it fails:
    bf16; the bf16 flash gradients against a bound derived from the
    numerics; the split decode kernels K6 and K7 twice on the same inputs
    (the same bits), and K7 against K6 on the same rows (the same bits);
+   K1's residual form against PyTorch's add and the plain K1 launch (the
+   same bits), and K1's backward against the plain backward and against
+   itself on a second launch (the same bits);
 3. the serving path at the flagship config's full width (vocab 32000,
    d_model 1024, 8 layers, 16 heads, bf16, 8 slots, max_seq 2048, random
    weights from a seed): one batched LMBackend call of 12 greedy requests,
    one seeded sampled request twice, one streamed request; every launch
    counter is set to 0 just before and read just after, and must show the
-   path went through each kernel as often as its structure says;
+   path went through each kernel as often as its structure says (K1 once
+   plain and 2L times in its residual form per prefill and per tick);
 3b. the paged serving path, LMBackend(paged=True) at the same config (page
    size 128), counters set to 0 before and read after: 16 greedy requests
    sharing a 512-token prefix, on the default pool and on a tight one that
    queues admission, one 1,536-token prompt through chunked prefill, one
    seeded sampled request twice and one streamed request; greedy outputs
    must equal the contiguous engine's, and every decode tick must launch
-   exactly 8 paged-decode, 0 decode and 17 RMSNorm kernels;
+   exactly 8 paged-decode, 0 decode and 17 RMSNorm kernels (1 plain, 16 in
+   the residual form);
 4. the same weights in f32 on the card and on the CPU, teacher-forced
    through 3 prompts for 16 decode steps, through the contiguous and the
    paged engine: logits within atol 1e-3;
 5. the training path at the same config (bf16 compute, f32 params, AdamW):
    5 train steps at batch 8, seq 2048 on one seeded batch; the counters are
-   set to 0 just before and read after every step, which must show 2L+1
-   RMSNorm, 1 cross-entropy, and L each of the flash forward, dq and dk/dv
-   launches; the loss starts within 1.0 of ln(32000) and falls;
+   set to 0 just before and read after every step, which must show 1 plain
+   and 2L residual RMSNorm forwards, 2L+1 RMSNorm backwards, 1
+   cross-entropy, and L each of the flash forward, dq and dk/dv launches;
+   the loss starts within 1.0 of ln(32000) and falls;
 6. one f32 train step at full width and depth (batch 1, seq 256) on the
    card and on the CPU from the same weights: the loss, every gradient,
    and the loss after a second step, within stated tolerances;
@@ -50,9 +56,11 @@ it fails:
    lengths, ~600 and ~2000 rows, with the number of splits; the flash
    kernels also in f32, at
    a GQA shape, and as TFLOP/s beside SDPA's forward and backward); the
-   paged decode tick against the contiguous one; the train step's device
-   time against its wall, and its kernels by name (torch.profiler), K3-K5
-   each.
+   paged decode tick against the contiguous one; K1's residual form at
+   the decode and train rows against x + a then F.rms_norm, K1's backward
+   against the plain one and autograd through F.rms_norm, and the host µs
+   per K1 call at the decode shape; the train step's device time against
+   its wall, and its kernels by name (torch.profiler), K1 and K3-K5 each.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -102,26 +110,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# Every kernel wrapper's launch counter, by the kernel's name in the
-# {"kernels": [...]} line.
+# Every kernel wrapper's launch counter (the wrapper and the attribute it
+# counts in), by the kernel's name in the {"kernels": [...]} line. K1 has
+# three: its plain forward, its residual form and its backward.
 COUNTED = {
-    "rms_norm": fused.rms_norm,
-    "decode_attention": attention.decode_attention,
-    "softmax_xent": fused.softmax_cross_entropy,
-    "flash_forward": attention.flash_forward,
-    "flash_backward_dq": attention.flash_backward_dq,
-    "flash_backward_dkv": attention.flash_backward_dkv,
-    "paged_decode_attention": paged_attention.paged_decode_attention,
+    "rms_norm": (fused.rms_norm, "launches"),
+    "add_rms_norm": (fused.add_rms_norm, "launches"),
+    "rms_norm_backward": (fused.rms_norm, "backward_launches"),
+    "decode_attention": (attention.decode_attention, "launches"),
+    "softmax_xent": (fused.softmax_cross_entropy, "launches"),
+    "flash_forward": (attention.flash_forward, "launches"),
+    "flash_backward_dq": (attention.flash_backward_dq, "launches"),
+    "flash_backward_dkv": (attention.flash_backward_dkv, "launches"),
+    "paged_decode_attention": (paged_attention.paged_decode_attention,
+                               "launches"),
 }
 
 
 def reset_counts() -> None:
-    for fn in COUNTED.values():
-        fn.launches = 0
+    for fn, attr in COUNTED.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTED.items()}
 
 
 def card_line() -> str:
@@ -334,6 +346,7 @@ def check_kernels() -> dict:
             if dtype == torch.bfloat16:
                 errs["rms_norm"] = max(errs["rms_norm"], err)
             del x, w
+    check_k1_residual_and_backward(errs)
     # Flagship decode shape (G=1, D=64) with lengths at 0, mid-tile, a tile
     # edge and S-1, and at the edges of its splits; a GQA shape (G=8,
     # D=128); a long cache, where many splits are live. Each split launch
@@ -363,6 +376,90 @@ def check_kernels() -> dict:
             del q, k, v
     torch.cuda.synchronize()
     return errs
+
+
+def check_k1_residual_and_backward(errs: dict) -> None:
+    """K1's residual form at the shapes of check_kernels: h must be
+    PyTorch's x + a and y the plain K1 launch's y on that h, bit for bit
+    (y is also held to the plain version as K1 is). K1's backward at a
+    decode tick's 8 rows and the train step's B*T, with and without the
+    residual's gradient g_h: the same bits on a second launch; against
+    the plain backward plus g_h (as autograd added it), dx within f32
+    atol = rtol = 1e-5 and, without g_h, bf16 atol = rtol = 2^-7; with
+    g_h the bf16 dx within fused._rms_norm_dx_bound (the plain version
+    rounds the norm's dx before adding g_h, the kernel rounds once); dw in
+    bf16 within 2^-7 and in f32 within fused._rms_norm_dw_bound (over
+    16384 rows the plain column sum is itself further than 1e-5 from the
+    exact sum). The bounds' derivations are beside the helpers; check_bound
+    prints the one-ulp check's reading (atol 1e-5, rtol 2^-7) beside."""
+    E = FLAGSHIP["d_model"]
+    errs.update(add_rms_norm=0.0, rms_norm_backward=0.0)
+    for shape in ((8, E), (64, E), (2048, E), (TRAIN_B * TRAIN_T, E),
+                  (TRAIN_B, TRAIN_T, E)):
+        rows = math.prod(shape[:-1])
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = rms_inputs(rows, dtype, seed=rows + 7)
+            a, _ = rms_inputs(rows, dtype, seed=rows + 8)
+            x, a = x.reshape(shape), a.reshape(shape)
+            what = f"add_rms_norm {list(shape)} {str(dtype)[6:]}"
+            h, y = fused.add_rms_norm(x, a, w, EPS)
+            if not torch.equal(h, x + a):
+                raise AssertionError(f"{what}: h differs from x + a")
+            plain_k1 = fused.rms_norm(h, w, EPS)
+            if not torch.equal(y, plain_k1):
+                raise AssertionError(f"{what}: y differs from rms_norm(h) "
+                                     f"by {max_err(y, plain_k1)}")
+            tol = (dict(atol=1e-6, rtol=1e-5) if dtype == torch.float32
+                   else dict(atol=2e-2, rtol=2e-2))
+            err = check_close(f"{what} y", y, fused._rms_norm_ref(h, w, EPS),
+                              **tol)
+            if dtype == torch.bfloat16:
+                errs["add_rms_norm"] = max(errs["add_rms_norm"], err)
+            del x, a, h, y, plain_k1
+    log("  add_rms_norm: h == x + a and y == rms_norm(h), bit for bit, at "
+        "every shape")
+    blocks_of = fused._rms_fn("rms_norm_backward_blocks")
+    for rows in (SLOTS, TRAIN_B * TRAIN_T):
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            h, w = rms_inputs(rows, dtype, seed=rows + 9)
+            gy, _ = rms_inputs(rows, dtype, seed=rows + 10)
+            gh, _ = rms_inputs(rows, dtype, seed=rows + 11)
+            for g_h in (gh, None):
+                what = (f"rms_norm_backward [{rows}, {E}] {str(dtype)[6:]}, "
+                        f"{'with' if g_h is not None else 'no'} g_h")
+                dx, dw = fused._rms_norm_bwd_cuda(h, w, gy, g_h, EPS)
+                dx2, dw2 = fused._rms_norm_bwd_cuda(h, w, gy, g_h, EPS)
+                if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                    raise AssertionError(f"{what}: a second launch differs")
+                dx_norm, want_dw = fused._rms_norm_bwd(h, w, gy, EPS)
+                want_dx = dx_norm if g_h is None else dx_norm + g_h
+                tol = (dict(atol=1e-5, rtol=1e-5) if f32
+                       else dict(atol=2 ** -7, rtol=2 ** -7))
+                if f32 or g_h is None:
+                    e_dx = check_close(f"{what} dx", dx, want_dx, **tol)
+                else:
+                    e_dx = check_bound(f"{what} dx", dx, want_dx,
+                                       fused._rms_norm_dx_bound(
+                                           dx, want_dx, dx_norm))
+                if f32:
+                    bnd = fused._rms_norm_dw_bound(h, gy, EPS, want_dw,
+                                                   blocks_of(rows))
+                    d = (dw - want_dw).abs()
+                    ratio = (d / bnd).max().item()
+                    over = int((d > 1e-5 + 1e-5 * want_dw.abs()).sum())
+                    log(f"  {what} dw: max_abs_err {d.max().item():.3e}, at "
+                        f"most {ratio:.3f} of the bound; atol = rtol = 1e-5 "
+                        f"fails {over} of {E}")
+                    if ratio > 1.0:
+                        raise AssertionError(f"{what} dw: error {ratio:.3f} "
+                                             f"times its bound")
+                else:
+                    e_dw = check_close(f"{what} dw", dw, want_dw, **tol)
+                    if rows > SLOTS and g_h is not None:
+                        errs["rms_norm_backward"] = max(e_dx, e_dw)
+            del h, w, gy, gh
+    log("  rms_norm_backward: every second launch gives the first's bits")
 
 
 def paged_inputs(B, H, KH, D, ps, P, lengths, dtype, seed: int):
@@ -664,11 +761,12 @@ def main_path(params, cfg) -> dict:
     log(f"  streamed request equals its whole response: {streamed[:8]}...")
 
     L = cfg.n_layers
-    want = {"rms_norm": (2 * L + 1) * (n_pre + n_tick),
+    want = {"rms_norm": n_pre + n_tick,
+            "add_rms_norm": 2 * L * (n_pre + n_tick),
             "decode_attention": L * n_tick}
     log(f"  launches {launches}, expected {want} "
-        f"(rms_norm {2 * L + 1} per prefill and per tick, "
-        f"decode_attention {L} per tick)")
+        f"(K1 {2 * L + 1} per prefill and per tick: rms_norm 1, "
+        f"add_rms_norm {2 * L}; decode_attention {L} per tick)")
     for name in want:
         if launches[name] == 0 or launches[name] != want[name]:
             raise AssertionError(
@@ -677,7 +775,20 @@ def main_path(params, cfg) -> dict:
     stray = {n: c for n, c in launches.items() if n not in want and c}
     if stray:
         raise AssertionError(f"training kernels ran while serving: {stray}")
+    check_launches_each(probe.prefill_launches + probe.tick_launches, L,
+                        "prefill or tick")
     return {"launches": launches, "probe": probe, "backend": backend}
+
+
+def check_launches_each(per_run, L: int, what: str) -> None:
+    """Every forward (a prefill, a prefill chunk, a decode tick) launches
+    K1 2L + 1 times: once plain, 2L times in its residual form."""
+    for i, got in enumerate(per_run):
+        n = got["rms_norm"]
+        if n == 0 or got["add_rms_norm"] != 2 * L * n:
+            raise AssertionError(
+                f"{what} {i}: {n} plain and {got['add_rms_norm']} residual "
+                f"K1 launches, expected 1 and {2 * L} per forward")
 
 
 # --------------------------------- phase 3b: the paged serving path
@@ -685,21 +796,23 @@ def main_path(params, cfg) -> dict:
 
 def check_paged_launches(probes, L: int) -> dict:
     """Every paged decode tick launches exactly L paged-decode, 0 decode
-    and 2L+1 RMSNorm kernels and nothing else; every prefill launches
-    RMSNorm 2L+1 times per forward (once, or once per chunk run) and no
-    attention kernel. Returns the totals they add up to."""
+    and 2L+1 RMSNorm kernels (1 plain, 2L in the residual form) and
+    nothing else; every prefill launches K1 so per forward (once, or once
+    per chunk run) and no attention kernel. Returns the totals they add
+    up to."""
     per_tick = {n: 0 for n in COUNTED}
-    per_tick.update(rms_norm=2 * L + 1, paged_decode_attention=L)
+    per_tick.update(rms_norm=1, add_rms_norm=2 * L,
+                    paged_decode_attention=L)
     total = {n: 0 for n in COUNTED}
     for probe in probes:
         for i, got in enumerate(probe.tick_launches):
             if got != per_tick:
                 raise AssertionError(f"paged tick {i}: launches {got}, "
                                      f"expected {per_tick}")
+        check_launches_each(probe.prefill_launches, L, "paged prefill")
         for i, got in enumerate(probe.prefill_launches):
-            rms = got["rms_norm"]
-            if (rms == 0 or rms % (2 * L + 1)
-                    or any(c for n, c in got.items() if n != "rms_norm")):
+            if any(c for n, c in got.items()
+                   if n not in ("rms_norm", "add_rms_norm")):
                 raise AssertionError(f"paged prefill {i}: launches {got}")
         for got in probe.tick_launches + probe.prefill_launches:
             for n, c in got.items():
@@ -794,9 +907,8 @@ def paged_path(params, cfg) -> dict:
     reads = sorted({n for r in probe_c.pages_read for n in r})
     log(f"  (c) {LONG_PROMPT}-token prompt, prefill_chunk {CHUNK}, 64 new "
         f"tokens: equal to the contiguous engine's; {len(probe_c.prefills)} "
-        f"prefill ({probe_c.prefill_launches[0]['rms_norm'] // (2 * L + 1)} "
-        f"chunks), decode ticks read {reads[0]}-{reads[-1]} pages through "
-        f"K7")
+        f"prefill ({probe_c.prefill_launches[0]['rms_norm']} chunks), "
+        f"decode ticks read {reads[0]}-{reads[-1]} pages through K7")
     if s1 != s2 or len(s1) != 16:
         raise AssertionError(f"seeded sampling not reproducible: {s1} {s2}")
     if streamed != outs[1]:
@@ -809,7 +921,7 @@ def paged_path(params, cfg) -> dict:
         raise AssertionError(f"launches {launches} != the prefills' and "
                              f"ticks' {total}")
     log(f"  launches {launches}: every tick exactly {L} paged_decode, 0 "
-        f"decode_attention, {2 * L + 1} rms_norm")
+        f"decode_attention, 1 rms_norm and {2 * L} add_rms_norm")
     return {"launches": launches, "probe": probe_a, "backend": backend,
             "contig": contig.engine, "contig_probe": contig_probe}
 
@@ -899,7 +1011,8 @@ def train_path(card: str) -> dict:
         f"config, bf16, batch {TRAIN_B}, seq {TRAIN_T}, AdamW")
     cfg, params, opt, train_step, batch = train_setup()
     V, L = cfg.vocab_size, cfg.n_layers
-    per_step = {"rms_norm": 2 * L + 1, "softmax_xent": 1,
+    per_step = {"rms_norm": 1, "add_rms_norm": 2 * L,
+                "rms_norm_backward": 2 * L + 1, "softmax_xent": 1,
                 "flash_forward": L, "flash_backward_dq": L,
                 "flash_backward_dkv": L}
     torch.cuda.reset_peak_memory_stats()
@@ -1053,6 +1166,8 @@ def timings(main: dict, card: str) -> dict:
         **bound(k1_bytes, k1_ops, bf16),
         shape=f"[{rows}, {E}] bf16")
 
+    out.update(k1_residual_timings(card))
+
     # K6 at the flagship decode shape with the lengths of a median
     # full-slot tick of this run.
     full_lens = [lens for active, lens in probe.tick_lengths
@@ -1099,6 +1214,76 @@ def timings(main: dict, card: str) -> dict:
                            lambda x, w: fused.rms_norm(x, w, EPS), sets, 200)
     log(f"  rms_norm at [64, {E}] bf16: kernel {prefill_ms * 1e3:.2f} us "
         f"[{card}]")
+    return out
+
+
+def host_us(fns: dict, calls: int = 1000, rounds: int = 5) -> dict:
+    """Host µs per call of each fn(): calls queued back to back on the CPU
+    clock, with no synchronize between them (the launches run behind), in
+    rounds that take the fns in turn; the median over rounds of each, so a
+    noisy neighbour on the host's cores does not decide a comparison."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def k1_residual_timings(card: str) -> dict:
+    """K1's residual form (add_rms_norm) at a decode tick's 8 rows and the
+    train step's B*T, against its plain version and against x + a then
+    F.rms_norm (two PyTorch calls: no one call computes it, so the
+    {"kernels": [...]} line has no library time for it); then, at the
+    decode shape under torch.inference_mode as the engines run, the host
+    µs per call of rms_norm, add_rms_norm and that pair. The line takes
+    the decode shape."""
+    E = FLAGSHIP["d_model"]
+    bf16 = torch.bfloat16
+    lib_rms = torch.nn.functional.rms_norm
+    out = {}
+    for rows, iters in ((SLOTS, 200), (TRAIN_B * TRAIN_T, 50)):
+        sets = [rms_inputs(rows, bf16, seed=110 + i)
+                + rms_inputs(rows, bf16, seed=150 + i)[:1]
+                for i in range(n_copies(4 * rows * E * 2))]
+        t = dict(
+            ms=device_ms("add_rms_norm kernel", lambda x, w, a:
+                         fused.add_rms_norm(x, a, w, EPS), sets, iters),
+            plain_ms=device_ms("add_rms_norm plain", lambda x, w, a:
+                               fused._add_rms_norm_ref(x, a, w, EPS), sets,
+                               iters // 2),
+            pair_ms=device_ms("x + a, F.rms_norm", lambda x, w, a:
+                              lib_rms(x + a, (E,), w, EPS), sets, iters),
+            unfused_ms=device_ms("x + a, rms_norm kernel", lambda x, w, a:
+                                 fused.rms_norm(x + a, w, EPS), sets, iters),
+            library_ms=None, **bound((4 * rows * E + E) * 2, 5 * rows * E,
+                                     bf16),
+            shape=f"[{rows}, {E}] bf16")
+        log(f"  add_rms_norm at {t['shape']}: kernel {t['ms'] * 1e3:.2f} us, "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, x + a then F.rms_norm "
+            f"{t['pair_ms'] * 1e3:.2f} us, x + a then the rms_norm kernel "
+            f"{t['unfused_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
+        if rows == SLOTS:
+            out["add_rms_norm"] = t
+            x, w, a = sets[0]
+            with torch.inference_mode():
+                hosts = host_us({
+                    "rms_norm": lambda: fused.rms_norm(x, w, EPS),
+                    "F.rms_norm": lambda: lib_rms(x, (E,), w, EPS),
+                    "add_rms_norm": lambda: fused.add_rms_norm(x, a, w, EPS),
+                    "x + a then F.rms_norm": lambda: lib_rms(x + a, (E,), w,
+                                                             EPS),
+                })
+            log("  host us per call at [8, 1024] bf16, 1000 calls queued, "
+                "median of 5 rounds in turn, inference mode: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in hosts.items()) + f" [{card}]")
+        del sets
     return out
 
 
@@ -1363,7 +1548,47 @@ def train_timings(card: str) -> dict:
     log(f"  rms_norm at [{N}, {E}] bf16: kernel {k1_ms * 1e3:.2f} us, bound "
         f"{bound((2 * N * E + E) * 2, 4 * N * E, bf16)['bound_ms'] * 1e3:.3f}"
         f" us [{card}]")
+    out["rms_norm_backward"] = k1_backward_timings(card)
     return out
+
+
+def k1_backward_timings(card: str) -> dict:
+    """K1's backward at the train step's [B*T, d_model] bf16, with the
+    residual's gradient g_h (16 of a step's 17 calls) and without; against
+    the plain backward plus the add that autograd did, and against
+    torch.autograd.grad through F.rms_norm (no g_h: its graph retained,
+    its forward outside the clock)."""
+    N, E = TRAIN_B * TRAIN_T, FLAGSHIP["d_model"]
+    bf16 = torch.bfloat16
+    h, w = rms_inputs(N, bf16, seed=610)
+    gy, gh = rms_inputs(N, bf16, seed=611)[0], rms_inputs(N, bf16, seed=612)[0]
+    hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
+    yl = torch.nn.functional.rms_norm(hl, (E,), wl, EPS)
+    sets = [(h, w, gy, gh)]
+
+    def plain(h, w, gy, gh):
+        dx, dw = fused._rms_norm_bwd(h, w, gy, EPS)
+        return dx + gh, dw
+
+    t = dict(
+        ms=device_ms("rms_norm_backward kernel", lambda h, w, gy, gh:
+                     fused._rms_norm_bwd_cuda(h, w, gy, gh, EPS), sets, 50),
+        no_gh_ms=device_ms("rms_norm_backward kernel, no g_h",
+                           lambda h, w, gy, gh: fused._rms_norm_bwd_cuda(
+                               h, w, gy, None, EPS), sets, 50),
+        plain_ms=device_ms("rms_norm_backward plain", plain, sets, 10),
+        library_ms=device_ms("autograd.grad through F.rms_norm",
+                             lambda h, w, gy, gh: torch.autograd.grad(
+                                 yl, (hl, wl), gy, retain_graph=True),
+                             sets, 20),
+        **bound((4 * N * E + 2 * E) * 2, 10 * N * E, bf16),
+        shape=f"[{N}, {E}] bf16, with g_h")
+    log(f"  rms_norm_backward at [{N}, {E}] bf16: kernel "
+        f"{t['ms'] * 1e3:.2f} us with g_h, {t['no_gh_ms'] * 1e3:.2f} us "
+        f"without; plain backward + add {t['plain_ms'] * 1e3:.2f} us; "
+        f"autograd.grad through F.rms_norm {t['library_ms'] * 1e3:.2f} us; "
+        f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
+    return t
 
 
 def train_breakdown(card: str, step_ms: float) -> None:
@@ -1395,8 +1620,8 @@ def train_breakdown(card: str, step_ms: float) -> None:
             "not measured")
         return
     groups = {"flash attention K3-K5": ("flash_",),
-              "RMSNorm K1, cross-entropy K2": ("rms_norm_kernel",
-                                               "xent_kernel"),
+              "RMSNorm K1 (forward, residual form, backward)": ("rms_norm",),
+              "cross-entropy K2": ("xent_kernel",),
               "cuBLAS matmuls": ("nvjet", "gemm", "sm90_", "cutlass"),
               "memcpy, memset": ("Memcpy", "Memset")}
     by_group = dict.fromkeys([*groups, "other PyTorch kernels"], 0.0)
@@ -1412,6 +1637,13 @@ def train_breakdown(card: str, step_ms: float) -> None:
                      ("K5 dk/dv", "flash_dkv")):
         ms = sum(r[1] for r in rows if key in r[0])
         log(f"    {ms:9.3f} ms {ms / total:6.1%}    of which {tag}")
+    # The device time under K1's autograd nodes (their forwards and
+    # backwards, as torch.profiler records them).
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and "RMSNorm" in e.key and e.device_time_total > 0):
+            log(f"    {e.device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+                f"under {e.key}")
     log("  largest kernels:")
     for name, ms, count in rows[:12]:
         log(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {name[:80]}")
@@ -1463,6 +1695,9 @@ def main() -> int:
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {
         "rms_norm": ("rms_norm.cu", "ray_tpu/ops/fused.py:40", main),
+        "add_rms_norm": ("rms_norm.cu", "ray_tpu/ops/fused.py:40", main),
+        "rms_norm_backward": ("rms_norm.cu", "ray_tpu/ops/fused.py:77",
+                              train),
         "decode_attention": ("decode_attention.cu",
                              "ray_tpu/ops/attention.py:544", main),
         "softmax_xent": ("softmax_xent.cu", "ray_tpu/ops/fused.py:117",

@@ -1,9 +1,19 @@
 #!/usr/bin/env python3
 """Time variants of the bf16 flash-attention kernels K3 (forward), K4 (dq)
-and K5 (dk/dv), and of the split flash-decode kernels K6 and K7, on one
-NVIDIA card.
+and K5 (dk/dv), of the split flash-decode kernels K6 and K7, and of the
+RMSNorm kernels K1 (forward, residual form, backward), on one NVIDIA card.
 
-    python3 flash_variants.py
+    python3 flash_variants.py        # K1, then K6/K7, then K3-K5
+    python3 flash_variants.py rms    # K1 only
+
+K1 first: each RMS_VARIANTS entry is ray_tpu_torch/csrc/rms_norm.cu with a
+constant replaced (rows a block or a warp for the forward, whether a row
+stays in registers between its two passes; the number of blocks the
+backward cuts the rows into; a diagnostic without the dw pass); each is
+checked against
+the source (the forward's bits; the backward's dx bits and its dw within
+bf16 atol = rtol = 2^-7 of the plain version) and timed at 8, 64 and 16384
+rows of the flagship's d_model in bf16, in turns.
 
 Each variant is ray_tpu_torch/csrc/flash_attention.cu with a few lines
 replaced (the table VARIANTS below), built by nvcc with the port's flags into
@@ -45,9 +55,10 @@ import torch
 
 import chip_smoke as cs
 from ray_tpu_torch._kernels import build
-from ray_tpu_torch.ops import attention, paged_attention
+from ray_tpu_torch.ops import attention, fused, paged_attention
 
 SRC = build.CSRC / "flash_attention.cu"
+RMS_SRC = build.CSRC / "rms_norm.cu"
 _K3_BOUNDS = "__launch_bounds__(32 * tc_warps<D>(), TC_MIN_BLOCKS)"
 # name -> (kernel it changes, kind, [(text in the source, its replacement)])
 VARIANTS = {
@@ -364,12 +375,158 @@ def decode_main(tmp: Path, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# K1 (csrc/rms_norm.cu): name -> (kind, [(text, replacement)]). Forward
+# variants keep each row's reduction and must give the source's bits;
+# backward variants change how many blocks (and partial rows of dw) the
+# rows are cut into, so dx keeps its bits and dw is summed in another order;
+# a diagnostic skips work, gives wrong results and is not checked.
+RMS_VARIANTS = {
+    "source": ("same", []),
+    "fwd: 1 row a block": ("same", [
+        ("constexpr int kRows = 2;", "constexpr int kRows = 1;")]),
+    "fwd: 4 rows a block": ("same", [
+        ("constexpr int kRows = 2;", "constexpr int kRows = 4;")]),
+    "fwd: 8 rows a block": ("same", [
+        ("constexpr int kRows = 2;", "constexpr int kRows = 8;")]),
+    "fwd: 2 rows a warp": ("same", [
+        ("constexpr int kRowsPerWarp = 1;",
+         "constexpr int kRowsPerWarp = 2;")]),
+    "fwd: 4 rows a warp": ("same", [
+        ("constexpr int kRowsPerWarp = 1;",
+         "constexpr int kRowsPerWarp = 4;")]),
+    "fwd: rows read again (no kHoldRow)": ("same", [
+        ("constexpr bool kHoldRow = true;",
+         "constexpr bool kHoldRow = false;")]),
+    "bwd: no dw pass (diagnostic)": ("diagnostic", [
+        ("  rms_norm_dw_kernel<T><<<",
+         "  if (false) rms_norm_dw_kernel<T><<<")]),
+    "bwd: 256 blocks": ("reorder", [
+        ("constexpr int kBwdBlocks = 1024;",
+         "constexpr int kBwdBlocks = 256;")]),
+    "bwd: 512 blocks": ("reorder", [
+        ("constexpr int kBwdBlocks = 1024;",
+         "constexpr int kBwdBlocks = 512;")]),
+    "bwd: 2048 blocks": ("reorder", [
+        ("constexpr int kBwdBlocks = 1024;",
+         "constexpr int kBwdBlocks = 2048;")]),
+}
+
+
+def build_rms(tmp: Path) -> dict:
+    """{name: ctypes library} of RMS_VARIANTS, one nvcc each, all at once."""
+    src = RMS_SRC.read_text()
+    procs = {}
+    for i, (name, (_, subs)) in enumerate(RMS_VARIANTS.items()):
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"{name}: {old!r} is not in {RMS_SRC.name}")
+            text = text.replace(old, new)
+        cu, so = tmp / f"rms{i}.cu", tmp / f"rms{i}.so"
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in fused._RMS_SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+    return libs
+
+
+def rms_launch(lib, which: str, x, a, w, h, y, gy, gh, dx, dw) -> None:
+    """One bf16 launch of a variant's K1: "fwd" (y from x), "add" (h, y
+    from x + a) or "bwd" (dx, dw from h = x, g_y, g_h)."""
+    R, E = x.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if which == "bwd":
+        part = torch.empty(lib.rms_norm_backward_blocks(R), E,
+                           device="cuda")
+        err = lib.rms_norm_backward(
+            x.data_ptr(), w.data_ptr(), gy.data_ptr(), gh.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), part.data_ptr(), R, E, cs.EPS, 1,
+            1, stream)
+    else:
+        add = which == "add"
+        err = lib.rms_norm_forward(
+            x.data_ptr(), a.data_ptr() if add else None, w.data_ptr(),
+            h.data_ptr() if add else None, y.data_ptr(), R, E, cs.EPS, 1, 1,
+            stream)
+    if err:
+        raise RuntimeError(f"K1 {which}: CUDA error {err}")
+
+
+def rms_main(tmp: Path, card: str) -> None:
+    """Every K1 variant at the decode tick's 8 rows, a prefill's 64 and the
+    train step's 16384 (bf16, d_model 1024): the plain forward, the
+    residual form, and (16384 rows) the backward with g_h, in turns. Each
+    is checked against the source first."""
+    libs = build_rms(tmp)
+    E, bf16 = cs.FLAGSHIP["d_model"], torch.bfloat16
+    runs = {8: ("fwd", "add"), 64: ("fwd",),
+            cs.TRAIN_B * cs.TRAIN_T: ("fwd", "add", "bwd")}
+    for R, whichs in runs.items():
+        sets = []
+        for i in range(cs.n_copies(4 * R * E * 2)):
+            x, w = cs.rms_inputs(R, bf16, seed=950 + i)
+            a, gy, gh = (cs.rms_inputs(R, bf16, seed=960 + 3 * i + k)[0]
+                         for k in range(3))
+            sets.append((x, a, w, torch.empty_like(x), torch.empty_like(x),
+                         gy, gh, torch.empty_like(x), torch.empty_like(w)))
+        want = {}
+        for which in whichs:
+            src = [t.clone() for t in sets[0]]
+            rms_launch(libs["source"], which, *src)
+            want[which] = src
+        for name, lib in libs.items():
+            for which in whichs:
+                got = [t.clone() for t in sets[0]]
+                rms_launch(lib, which, *got)
+                kind = RMS_VARIANTS[name][0]
+                if kind == "diagnostic":
+                    continue
+                outs = {"fwd": (4,), "add": (3, 4), "bwd": (7, 8)}[which]
+                for k in outs:
+                    same = torch.equal(got[k], want[which][k])
+                    if not same and (kind == "same" or k == 7):
+                        raise AssertionError(f"{name} {which} R={R}: not "
+                                             f"the source's bits")
+                    if not same:
+                        _, pdw = fused._rms_norm_bwd(got[0], got[2], got[5],
+                                                     cs.EPS)
+                        torch.testing.assert_close(
+                            got[8].float(), pdw.float(), atol=2 ** -7,
+                            rtol=2 ** -7)
+        times = {}
+        for name in list(libs) + list(libs)[::-1]:
+            for which in whichs:
+                times.setdefault((name, which), []).append(cs.device_ms(
+                    f"{name} {which} R={R}", lambda *t, lib=libs[name],
+                    w=which: rms_launch(lib, w, *t), sets,
+                    50 if R > 64 else 200, sleep_cycles=200_000_000))
+        print(f"K1 at [{R}, {E}] bf16 [{card}]:", flush=True)
+        for (name, which), ms in times.items():
+            print(f"  {name} ({RMS_VARIANTS[name][0]}) {which}: "
+                  f"{ms[0] * 1e3:.2f}, {ms[1] * 1e3:.2f} us", flush=True)
+        del sets, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("flash_variants: no CUDA device is available")
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        rms_main(Path(tmp), card)
+        if sys.argv[1:] == ["rms"]:
+            return 0
         decode_main(Path(tmp), card)
         libs = build_all(Path(tmp))
         src = libs["source"][0]

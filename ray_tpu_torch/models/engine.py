@@ -35,8 +35,7 @@ import torch
 from .. import Device, default_device
 from ..ops.attention import decode_attention, masked_gqa_attention
 from .transformer import (
-    Params, TransformerConfig, _mlp, _rms_norm, _rope, layer_params,
-    to_compute,
+    Params, TransformerConfig, _decoder, _layers, _rope, to_compute,
 )
 
 
@@ -60,9 +59,8 @@ def _batched_decode(params: Params, tokens: torch.Tensor,
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     slots = torch.arange(B, device=tokens.device)
     x = params["embed"][tokens][:, None, :]                     # [B, 1, E]
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+
+    def attend(i, layer, h):
         q = _rope_at((h @ layer["wq"]).reshape(B, 1, H, Dh), lengths,
                      cfg.rope_theta)
         k = _rope_at((h @ layer["wk"]).reshape(B, 1, KH, Dh), lengths,
@@ -72,9 +70,10 @@ def _batched_decode(params: Params, tokens: torch.Tensor,
         cache_v[i, slots, lengths] = v[:, 0]
         attn = decode_attention(q[:, 0].contiguous(), cache_k[i], cache_v[i],
                                 lengths).reshape(B, 1, H * Dh)
-        h2 = x + attn @ layer["wo"]
-        x = h2 + _mlp(_rms_norm(h2, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[:, 0] @ params["embed"].T
 
 
@@ -92,9 +91,8 @@ def _prefill_into_slot(params: Params, tokens: torch.Tensor, real_len: int,
     x = params["embed"][tokens]                                 # [1, Tb, E]
     positions = torch.arange(Tb, device=dev)
     causal = positions[None, :] <= positions[:, None]           # [Tb, Tb]
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+
+    def attend(i, layer, h):
         q = _rope((h @ layer["wq"]).reshape(1, Tb, H, Dh), positions,
                   cfg.rope_theta)
         k = _rope((h @ layer["wk"]).reshape(1, Tb, KH, Dh), positions,
@@ -103,9 +101,10 @@ def _prefill_into_slot(params: Params, tokens: torch.Tensor, real_len: int,
         cache_k[i, slot, :Tb] = k[0]
         cache_v[i, slot, :Tb] = v[0]
         attn = masked_gqa_attention(q, k, v, causal).reshape(1, Tb, H * Dh)
-        h2 = x + attn @ layer["wo"]
-        x = h2 + _mlp(_rms_norm(h2, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[0, real_len - 1] @ params["embed"].T               # [V]
 
 
@@ -121,19 +120,19 @@ def _prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
     [T, T] mask. Pad rows in the final chunk hold garbage beyond the real
     length, covered by the same overwrite-before-attend invariant.
 
-    The block body is the third copy of the layer math (with
-    _prefill_into_slot and _batched_decode); the engine tests pin all
-    three to generate(): touch the layer math in one, touch it in all."""
+    Its attention block is the third copy (with _prefill_into_slot's and
+    _batched_decode's) around the layer loop they share
+    (transformer._decoder); the engine tests pin all three to generate():
+    touch the attention math in one, touch it in all."""
     _, C = tokens.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     S = cache_k.shape[2]
     dev = tokens.device
     x = params["embed"][tokens]                                 # [1, C, E]
     positions = start + torch.arange(C, device=dev)
-    attend = torch.arange(S, device=dev)[None, :] <= positions[:, None]
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    mask = torch.arange(S, device=dev)[None, :] <= positions[:, None]
+
+    def attend(i, layer, h):
         q = _rope((h @ layer["wq"]).reshape(1, C, H, Dh), positions,
                   cfg.rope_theta)
         k = _rope((h @ layer["wk"]).reshape(1, C, KH, Dh), positions,
@@ -143,10 +142,11 @@ def _prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
         cache_v[i, slot, start:start + C] = v[0]
         attn = masked_gqa_attention(
             q, cache_k[i, slot:slot + 1], cache_v[i, slot:slot + 1],
-            attend).reshape(1, C, H * Dh)
-        h2 = x + attn @ layer["wo"]
-        x = h2 + _mlp(_rms_norm(h2, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+            mask).reshape(1, C, H * Dh)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[0, last_idx] @ params["embed"].T                   # [V]
 
 

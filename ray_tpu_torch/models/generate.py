@@ -17,8 +17,7 @@ import torch
 from .. import Device, default_device
 from ..ops.attention import masked_gqa_attention
 from .transformer import (
-    Params, TransformerConfig, _mlp, _rms_norm, _rope, layer_params,
-    to_compute,
+    Params, TransformerConfig, _decoder, _layers, _rope, to_compute,
 )
 
 KVCache = Dict[str, object]
@@ -35,31 +34,28 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
     }
 
 
-def _block(x, layer, ck, cv, start: int, positions, mask,
-           cfg: TransformerConfig):
-    """One decoder block over cached KV: project this chunk's K/V, write
-    them into the layer cache ck/cv [B, S, KH, Dh] at ``start`` IN PLACE,
-    then attend the cache under ``mask``. x [B, T, E]."""
+def _forward_cached(params, x, cfg, cache, start: int, positions, mask):
+    """The decoder over cached KV, x [B, T, E]: each layer projects this
+    chunk's K/V, writes them into its cache [B, S, KH, Dh] at ``start`` IN
+    PLACE, then attends the cache under ``mask``. Returns the last
+    position's logits."""
     B, T, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _rope((h @ layer["wq"]).reshape(B, T, H, Dh), positions,
-              cfg.rope_theta)
-    k = _rope((h @ layer["wk"]).reshape(B, T, KH, Dh), positions,
-              cfg.rope_theta)
-    v = (h @ layer["wv"]).reshape(B, T, KH, Dh)
-    ck[:, start:start + T] = k
-    cv[:, start:start + T] = v
-    attn = masked_gqa_attention(q, ck, cv, mask).reshape(B, T, H * Dh)
-    h = x + attn @ layer["wo"]
-    return h + _mlp(_rms_norm(h, layer["mlp_norm"], cfg.norm_eps), layer)
 
+    def attend(i, layer, h):
+        ck, cv = cache["k"][i], cache["v"][i]
+        q = _rope((h @ layer["wq"]).reshape(B, T, H, Dh), positions,
+                  cfg.rope_theta)
+        k = _rope((h @ layer["wk"]).reshape(B, T, KH, Dh), positions,
+                  cfg.rope_theta)
+        v = (h @ layer["wv"]).reshape(B, T, KH, Dh)
+        ck[:, start:start + T] = k
+        cv[:, start:start + T] = v
+        attn = masked_gqa_attention(q, ck, cv, mask).reshape(B, T, H * Dh)
+        return attn @ layer["wo"]
 
-def _forward_cached(params, x, cfg, cache, start: int, positions, mask):
-    for i in range(cfg.n_layers):
-        x = _block(x, layer_params(params, i), cache["k"][i], cache["v"][i],
-                   start, positions, mask, cfg)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[:, -1] @ params["embed"].T
 
 

@@ -51,9 +51,7 @@ from ..ops.paged_attention import (
     PagePool, paged_decode_attention, paged_gather, write_paged,
 )
 from .engine import GenerationEngine, _Request, _rope_at
-from .transformer import (
-    Params, TransformerConfig, _mlp, _rms_norm, _rope, layer_params,
-)
+from .transformer import Params, TransformerConfig, _decoder, _layers, _rope
 
 
 def _paged_decode(params: Params, tokens: torch.Tensor,
@@ -72,9 +70,8 @@ def _paged_decode(params: Params, tokens: torch.Tensor,
     # Global pool row for each slot's current position, through its table.
     page = tables.gather(1, (lengths // ps).long()[:, None])[:, 0]   # [B]
     rows = page.clamp_min(0) * ps + lengths % ps                  # [B]
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+
+    def attend(i, layer, h):
         q = _rope_at((h @ layer["wq"]).reshape(B, 1, H, Dh), lengths,
                      cfg.rope_theta)
         k = _rope_at((h @ layer["wk"]).reshape(B, 1, KH, Dh), lengths,
@@ -85,9 +82,10 @@ def _paged_decode(params: Params, tokens: torch.Tensor,
         attn = paged_decode_attention(
             q[:, 0].contiguous(), k_pages[i], v_pages[i], tables,
             lengths).reshape(B, 1, H * Dh)
-        h2 = x + attn @ layer["wo"]
-        x = h2 + _mlp(_rms_norm(h2, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[:, 0] @ params["embed"].T
 
 
@@ -112,11 +110,10 @@ def _paged_prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
     dev = tokens.device
     x = params["embed"][tokens]                                 # [1, C, E]
     positions = start + torch.arange(C, device=dev)
-    attend = (torch.arange(P * ps, device=dev)[None, :]
-              <= positions[:, None])                            # [C, P*ps]
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    mask = (torch.arange(P * ps, device=dev)[None, :]
+            <= positions[:, None])                              # [C, P*ps]
+
+    def attend(i, layer, h):
         q = _rope((h @ layer["wq"]).reshape(1, C, H, Dh), positions,
                   cfg.rope_theta)
         k = _rope((h @ layer["wk"]).reshape(1, C, KH, Dh), positions,
@@ -126,11 +123,12 @@ def _paged_prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
         write_paged(v_pages[i], rows, v[0])
         buf_k = paged_gather(k_pages[i], table_row[None])   # [1, P*ps, ...]
         buf_v = paged_gather(v_pages[i], table_row[None])
-        attn = masked_gqa_attention(q, buf_k, buf_v, attend).reshape(
+        attn = masked_gqa_attention(q, buf_k, buf_v, mask).reshape(
             1, C, H * Dh)
-        h2 = x + attn @ layer["wo"]
-        x = h2 + _mlp(_rms_norm(h2, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[0, last_idx] @ params["embed"].T                   # [V]
 
 
@@ -149,9 +147,8 @@ def _paged_prefill(params: Params, tokens: torch.Tensor, real_len: int,
     x = params["embed"][tokens]                                 # [1, Tb, E]
     positions = torch.arange(Tb, device=dev)
     causal = positions[None, :] <= positions[:, None]
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+
+    def attend(i, layer, h):
         q = _rope((h @ layer["wq"]).reshape(1, Tb, H, Dh), positions,
                   cfg.rope_theta)
         k = _rope((h @ layer["wk"]).reshape(1, Tb, KH, Dh), positions,
@@ -160,9 +157,10 @@ def _paged_prefill(params: Params, tokens: torch.Tensor, real_len: int,
         write_paged(k_pages[i], rows, k[0])
         write_paged(v_pages[i], rows, v[0])
         attn = masked_gqa_attention(q, k, v, causal).reshape(1, Tb, H * Dh)
-        h2 = x + attn @ layer["wo"]
-        x = h2 + _mlp(_rms_norm(h2, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
     return x[0, real_len - 1] @ params["embed"].T               # [V]
 
 

@@ -22,14 +22,14 @@ inside autograd, so the gradients reach the f32 parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
 
 from .. import Device, default_device
 from ..ops.attention import flash_attention
-from ..ops.fused import rms_norm, softmax_cross_entropy
+from ..ops.fused import add_rms_norm, rms_norm, softmax_cross_entropy
 
 Params = Dict[str, Any]
 
@@ -120,10 +120,21 @@ def layer_params(params: Params, i: int) -> Params:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+def _layers(params: Params, cfg: TransformerConfig) -> List[Params]:
+    """Every layer's weights, in order (``layer_params`` of each)."""
+    return [layer_params(params, i) for i in range(cfg.n_layers)]
+
+
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor,
               eps: float) -> torch.Tensor:
     # Hand-written CUDA kernel on the card, plain version on the CPU.
     return rms_norm(x, weight.to(x.dtype), eps)
+
+
+def _add_rms_norm(x: torch.Tensor, a: torch.Tensor, weight: torch.Tensor,
+                  eps: float):
+    # (x + a, its norm) in one launch of the same kernel on the card.
+    return add_rms_norm(x, a, weight.to(x.dtype), eps)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -146,6 +157,26 @@ def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
     gate = torch.nn.functional.silu(x @ layer["w_gate"])
     up = x @ layer["w_up"]
     return (gate * up) @ layer["w_down"]
+
+
+def _decoder(x: torch.Tensor, layers: List[Params], final_norm: torch.Tensor,
+             eps: float, attend: Callable[[int, Params, torch.Tensor],
+                                          torch.Tensor]) -> torch.Tensor:
+    """The layer loop that training, prefill and decode share (the JAX
+    ``block``: h = x + attn(norm(x)); x = h + mlp(norm(h)); then the final
+    norm). x is the embedded input [.., E]; layers holds each layer's
+    weights in the compute dtype; ``attend(i, layer, y)`` returns layer i's
+    attention output (after ``wo``) for its normed input y. Every residual
+    add is fused into the norm that follows it, so the loop is one plain
+    RMSNorm and 2L ``add_rms_norm``: 2L + 1 launches of kernel K1 on the
+    card, and no launch of an add. Returns the final norm's output."""
+    y = _rms_norm(x, layers[0]["attn_norm"] if layers else final_norm, eps)
+    for i, layer in enumerate(layers):
+        h, y = _add_rms_norm(x, attend(i, layer, y), layer["mlp_norm"], eps)
+        nxt = (layers[i + 1]["attn_norm"] if i + 1 < len(layers)
+               else final_norm)
+        x, y = _add_rms_norm(h, _mlp(y, layer), nxt, eps)
+    return y
 
 
 # ------------------------------------------------------------- training
@@ -202,13 +233,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     names = list(params["layers"])
     # unbind: the backward stacks each weight's L gradients in one op.
     stacks = [params["layers"][k].unbind(0) for k in names]
-    for weights in zip(*stacks):
-        layer = {k: w.to(dt) for k, w in zip(names, weights)}
-        h = x + _attention(_rms_norm(x, layer["attn_norm"], cfg.norm_eps),
-                           layer, cfg, positions)
-        x = h + _mlp(_rms_norm(h, layer["mlp_norm"], cfg.norm_eps), layer)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ embed.T
+    layers = [{k: w.to(dt) for k, w in zip(names, weights)}
+              for weights in zip(*stacks)]
+    y = _decoder(x, layers, params["final_norm"], cfg.norm_eps,
+                 lambda i, layer, y: _attention(y, layer, cfg, positions))
+    return y @ embed.T
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,

@@ -57,6 +57,108 @@ def test_rms_norm_kernel_unaligned_rows_take_scalar_loads(dev):
                                rtol=1e-5)
 
 
+# Rows of a decode tick (8), a prefill bucket (64), many (4096); widths
+# under a warp's vector reach (64), 16-byte but not 32-byte rows (1000),
+# rows the vector loads cannot take (1001), the flagship's (1024), a wide
+# row (4096) and one wider than the backward's vector route (3001, scalar).
+_K1_ROWS, _K1_WIDTHS = (1, 8, 64, 4096), (64, 1000, 1001, 1024, 3001, 4096)
+
+
+def _k1_inputs(dev, R, E, dtype, seed):
+    g = _gen(seed)
+    x, a, gy, gh = (torch.randn(R, E, generator=g, device=dev).to(dtype)
+                    for _ in range(4))
+    w = (1 + 0.1 * torch.randn(E, generator=g, device=dev)).to(dtype)
+    return x, a, w, gy, gh
+
+
+@pytest.mark.parametrize("E", _K1_WIDTHS)
+@pytest.mark.parametrize("R", _K1_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rms_norm_kernel_gives_add_then_rms_norm_bits(dev, R, E, dtype):
+    """The residual form of K1: h equals PyTorch's x + a and y the plain
+    K1 launch on that h, bit for bit."""
+    x, a, w, _, _ = _k1_inputs(dev, R, E, dtype, R + E)
+    h, y = fused.add_rms_norm(x, a, w, 1e-5)
+    assert torch.equal(h, x + a)
+    assert torch.equal(y, fused.rms_norm(h, w, 1e-5))
+
+
+def test_add_rms_norm_kernel_unaligned_rows_take_scalar_loads(dev):
+    flat = torch.randn(2, 1 + 4 * 64, generator=_gen(2), device=dev)
+    x, a = (f[1:].view(4, 64) for f in flat)   # contiguous, 4 bytes off 16
+    w = torch.ones(64, device=dev)
+    h, y = fused.add_rms_norm(x, a, w, 1e-5)
+    assert torch.equal(h, x + a)
+    # The same scalar route on h: an unaligned copy of it.
+    h_off = torch.empty(1 + 4 * 64, device=dev)[1:].view(4, 64)
+    h_off.copy_(h)
+    assert torch.equal(y, fused.rms_norm(h_off, w, 1e-5))
+
+
+@pytest.mark.parametrize("with_gh", [True, False], ids=["g_h", "no_g_h"])
+@pytest.mark.parametrize("E", _K1_WIDTHS)
+@pytest.mark.parametrize("R", _K1_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_kernel_matches_plain(dev, R, E, dtype, with_gh):
+    """The backward kernel against the plain backward (plus g_h, added as
+    autograd adds it), and against itself on a second launch (the same
+    bits). f32: dx within atol = rtol = 1e-5; dw within
+    fused._rms_norm_dw_bound, since over thousands of rows the plain column
+    sum is itself further than 1e-5 from the exact one. bf16: dw, and dx
+    without g_h, within atol = rtol = 2^-7, the JAX grad test's tolerance;
+    dx with g_h within fused._rms_norm_dx_bound, since the plain version
+    rounds twice where the kernel rounds once."""
+    _, _, w, gy, gh = _k1_inputs(dev, R, E, dtype, 2 * R + E)
+    h = torch.randn(R, E, generator=_gen(R), device=dev).to(dtype)
+    gh = gh if with_gh else None
+    dx, dw = fused._rms_norm_bwd_cuda(h, w, gy, gh, 1e-5)
+    dx2, dw2 = fused._rms_norm_bwd_cuda(h, w, gy, gh, 1e-5)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    dx_norm, want_dw = fused._rms_norm_bwd(h, w, gy, 1e-5)
+    want_dx = dx_norm + gh if with_gh else dx_norm
+    assert dx.dtype == dw.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, want_dx, atol=1e-5, rtol=1e-5)
+        blocks = fused._rms_fn("rms_norm_backward_blocks")(R)
+        bound = fused._rms_norm_dw_bound(h, gy, 1e-5, want_dw, blocks)
+        assert bool(((dw - want_dw).abs() <= bound).all())
+    else:
+        checks = [(dw, want_dw)] + ([] if with_gh else [(dx, want_dx)])
+        for got, want in checks:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=2 ** -7, rtol=2 ** -7)
+        if with_gh:
+            bound = fused._rms_norm_dx_bound(dx, want_dx, dx_norm)
+            assert bool(((dx.float() - want_dx.float()).abs()
+                         <= bound).all())
+
+
+def test_rms_norm_backward_counts_one_launch_per_norm_of_a_step(dev):
+    """A train step launches K1's forward once plain and 2L times in its
+    residual form, and its backward kernel 2L + 1 times."""
+    from ray_tpu_torch.models import (TransformerConfig, init_params,
+                                      make_train_step)
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=3,
+                            n_heads=2, n_kv_heads=2, d_ff=256,
+                            max_seq_len=64)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    init_opt, step = make_train_step(cfg)
+    opt = init_opt(params)
+    tokens = torch.randint(0, 256, (2, 33),
+                           generator=torch.Generator().manual_seed(1))
+    for _ in range(2):
+        before = (fused.rms_norm.launches, fused.add_rms_norm.launches,
+                  fused.rms_norm.backward_launches)
+        step(params, opt, {"tokens": tokens})
+        after = (fused.rms_norm.launches, fused.add_rms_norm.launches,
+                 fused.rms_norm.backward_launches)
+        L = cfg.n_layers
+        assert [b - a for a, b in zip(before, after)] == [1, 2 * L,
+                                                          2 * L + 1]
+
+
 def _split_edges(B, KH, S, count):
     """count lengths below S at the split edges of the decode kernels' plan
     at B*KH (attention.decode_splits): a length whose last row is the first
@@ -298,7 +400,7 @@ def _grads_on(device, fn, *arrays):
 
 
 @pytest.mark.parametrize("op", ["flash_attention", "softmax_cross_entropy",
-                                "rms_norm"])
+                                "rms_norm", "add_rms_norm"])
 def test_autograd_on_card_matches_cpu_f32(dev, op):
     """torch.autograd.grad through each differentiable wrapper on the card
     (kernel forward) and on the CPU (plain forward), f32: outputs and
@@ -317,6 +419,11 @@ def test_autograd_on_card_matches_cpu_f32(dev, op):
         "rms_norm": (
             lambda x, w: fused.rms_norm(x, w, 1e-5),
             [torch.randn(3, 5, 96, generator=g),
+             1 + 0.1 * torch.randn(96, generator=g)]),
+        "add_rms_norm": (
+            lambda x, a, w: torch.stack(fused.add_rms_norm(x, a, w, 1e-5)),
+            [torch.randn(3, 5, 96, generator=g),
+             torch.randn(3, 5, 96, generator=g),
              1 + 0.1 * torch.randn(96, generator=g)]),
     }[op]
     for got, want in zip(_grads_on(dev, fn, *arrays),

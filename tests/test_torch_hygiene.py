@@ -117,6 +117,58 @@ def test_rms_norm_kernel_wrapper_refuses_what_it_does_not_take():
     assert fused.rms_norm.launches == before
 
 
+def _rms_counts():
+    return (fused.rms_norm.launches, fused.add_rms_norm.launches,
+            fused.rms_norm.backward_launches)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+@pytest.mark.parametrize("case", [
+    "not_cuda", "cpu_operand", "a_shape", "a_dtype", "float16"])
+def test_add_rms_norm_kernel_wrapper_refuses_what_it_does_not_take(case,
+                                                                   grad):
+    """Off the CPU, add_rms_norm takes the kernel or raises: a tensor off
+    the card, a residual a on another device or of another shape or dtype
+    than x, or a dtype the kernel does not take is refused, never handed to
+    the plain version, and no counter moves."""
+    x, w = torch.ones(2, 8, **_META), torch.ones(8, **_META)
+    (x, a, w), err, match = {
+        "not_cuda": ((x, x, w), ValueError, "CUDA tensors"),
+        "cpu_operand": ((x, torch.ones(2, 8), w), ValueError,
+                        "CUDA tensors"),
+        "a_shape": ((x, torch.ones(3, 8, **_META), w), ValueError,
+                    "differs from x's"),
+        "a_dtype": ((x, x.bfloat16(), w), TypeError, "differs from x dtype"),
+        "float16": ((x.half(), x.half(), w.half()), TypeError, "float32 or"),
+    }[case]
+    x.requires_grad_(grad)
+    before = _rms_counts()
+    with pytest.raises(err, match=match):
+        fused.add_rms_norm(x, a, w)
+    with pytest.raises(err, match=match):
+        fused._rms_norm_cuda(x, w, 1e-5, a)
+    assert _rms_counts() == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "meta", "g_h_shape", "w_dtype"])
+def test_rms_norm_backward_kernel_route_refuses_what_it_does_not_take(case):
+    """The backward kernel's route, handed CPU or meta tensors, a residual
+    gradient of another shape, or a weight of another dtype, raises before
+    it launches, and no counter moves."""
+    dev = "cpu" if case == "cpu" else "meta"
+    h = torch.ones(2, 8, device=dev)
+    w, g = torch.ones(8, device=dev), torch.ones(2, 8, device=dev)
+    g_h, err, match = None, ValueError, "CUDA tensors"
+    if case == "g_h_shape":
+        g_h, match = torch.ones(2, 4, device=dev), "differs from x's"
+    if case == "w_dtype":
+        w, err, match = w.bfloat16(), TypeError, "differs from x dtype"
+    before = _rms_counts()
+    with pytest.raises(err, match=match):
+        fused._rms_norm_bwd_cuda(h, w, g, g_h, 1e-5)
+    assert _rms_counts() == before
+
+
 def test_decode_kernel_wrapper_refuses_what_it_does_not_take():
     before = attention.decode_attention.launches
     meta = dict(device="meta")
@@ -166,7 +218,7 @@ _FLASH_WRAPPERS = {
     "flash_backward_dq": lambda *a: attention.flash_backward_dq(*a),
     "flash_backward_dkv": lambda *a: attention.flash_backward_dkv(*a),
 }
-_COUNTERS = (fused.rms_norm, fused.softmax_cross_entropy,
+_COUNTERS = (fused.rms_norm, fused.add_rms_norm, fused.softmax_cross_entropy,
              attention.flash_forward, attention.flash_backward_dq,
              attention.flash_backward_dkv, attention.decode_attention,
              paged_attention.paged_decode_attention)

@@ -75,6 +75,47 @@ def test_rms_norm_wrapper_on_cpu_is_plain_and_uncounted():
     assert tfused.rms_norm.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 64), (4, 16, 64), (3, 96)])
+def test_add_rms_norm_ref_matches_jax_composite(shape, dtype):
+    """(h, y) = (x + a, rms_norm(x + a)) against the JAX model's composite
+    on the same inputs: h equal (one rounding of the same sum in both); y
+    within the test_rms_norm_ref_* tolerances (f32 rtol 1e-5, atol 1e-6;
+    bf16 one ulp, rtol 2^-7)."""
+    rng = np.random.default_rng(7)
+    x, a = _rand(rng, *shape), _rand(rng, *shape)
+    w = 1.0 + 0.1 * _rand(rng, shape[-1])
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jh = jnp.asarray(x, jdt) + jnp.asarray(a, jdt)
+    jy = jfused.rms_norm(jh, jnp.asarray(w, jdt), 1e-5)
+    h, y = tfused.add_rms_norm(*(torch.from_numpy(v).to(tdt)
+                                 for v in (x, a, w)), 1e-5)
+    assert h.dtype == y.dtype == tdt and h.shape == y.shape == shape
+    np.testing.assert_array_equal(h.float().numpy(),
+                                  np.asarray(jh.astype(jnp.float32)))
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2 ** -7, atol=1e-6))
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy.astype(jnp.float32)), **tol)
+
+
+def test_add_rms_norm_wrapper_on_cpu_is_plain_and_uncounted():
+    rng = np.random.default_rng(8)
+    x, a = (torch.from_numpy(_rand(rng, 5, 32)) for _ in range(2))
+    w = torch.from_numpy(1.0 + 0.1 * _rand(rng, 32))
+    counts = (tfused.rms_norm.launches, tfused.add_rms_norm.launches,
+              tfused.rms_norm.backward_launches)
+    h, y = tfused.add_rms_norm(x, a, w, 1e-5)
+    want_h, want_y = tfused._add_rms_norm_ref(x, a, w, 1e-5)
+    assert torch.equal(h, x + a) and torch.equal(h, want_h)
+    assert torch.equal(y, want_y)
+    assert torch.equal(y, tfused._rms_norm_ref(x + a, w, 1e-5))
+    xg = x.clone().requires_grad_()
+    sum(t.sum() for t in tfused.add_rms_norm(xg, a, w, 1e-5)).backward()
+    assert (tfused.rms_norm.launches, tfused.add_rms_norm.launches,
+            tfused.rms_norm.backward_launches) == counts
+
+
 # ------------------------------------------------------- decode attention
 
 

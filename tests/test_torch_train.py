@@ -119,6 +119,43 @@ def test_rms_norm_grads_match_jax(dtype):
                                    **tol)
 
 
+@pytest.mark.parametrize("grads", ["h_and_y", "y_only"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rms_norm_grads_match_jax(dtype, grads):
+    """dx, da and dw of sum(g_h * h + g_y * y) for (h, y) = add_rms_norm(x,
+    a, w) against jax.grad of the JAX composite (h = x + a, y =
+    rms_norm(h)); y_only drops the g_h term, so the backward gets no
+    gradient for h. Tolerances as test_rms_norm_grads_match_jax: f32 atol
+    1e-6, rtol 1e-5; bf16 atol = rtol = 2^-7."""
+    rng = np.random.default_rng(9)
+    x, a, w = _rand(rng, 4, 8, 64), _rand(rng, 4, 8, 64), \
+        1 + 0.1 * _rand(rng, 64)
+    gh, gy = _rand(rng, 4, 8, 64), _rand(rng, 4, 8, 64)
+    use_h = grads == "h_and_y"
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def composite(x, a, w):
+        h = x + a
+        out = jnp.sum((jfused.rms_norm(h, w, 1e-5) * gy).astype(jnp.float32))
+        return out + jnp.sum((h * gh).astype(jnp.float32)) if use_h else out
+
+    want = jax.grad(composite, argnums=(0, 1, 2))(
+        *(jnp.asarray(v, jdt) for v in (x, a, w)))
+    ts = [torch.from_numpy(v).to(tdt).requires_grad_() for v in (x, a, w)]
+    h, y = tfused.add_rms_norm(*ts, 1e-5)
+    loss = (y.float() * torch.from_numpy(gy)).sum()
+    if use_h:
+        loss = loss + (h.float() * torch.from_numpy(gh)).sum()
+    loss.backward()
+    tol = (dict(atol=1e-6, rtol=1e-5) if dtype == "float32"
+           else dict(atol=2 ** -7, rtol=2 ** -7))
+    for t, ref in zip(ts, want):
+        assert t.grad.dtype == tdt
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   **tol)
+
+
 # --------------------------------------------- K3-K5: flash attention
 
 _FLASH_CASES = {
