@@ -37,9 +37,24 @@ it fails:
    must equal the contiguous engine's, and every decode tick must launch
    exactly 8 paged-decode, 0 decode and 17 RMSNorm kernels (1 plain, 16 in
    the residual form);
+3c. speculative serving, LMBackend(speculative_k=4, speculative_ngram=2)
+   over each engine at the same config, counters set to 0 before and read
+   after: (a) 8 quoting requests (a 96-token passage and its first 32
+   tokens again, 64 new tokens), (b) phase 3's 12 greedy requests, (c) a
+   seeded sampled request beside 3 greedy ones, the batch twice (equal),
+   (d) a stream equal to the same request's whole response, (e) a request
+   that ends at exactly max_seq; the paged one also the 16 shared-prefix
+   requests, whose prefix pages must keep their bits through every verify
+   pass. Every verify pass must launch 17 RMSNorm kernels and no decode
+   kernel, every paged tick with no drafts 17 RMSNorm and 8 paged-decode
+   kernels. Greedy outputs against the same engines with speculation off:
+   each request that differs must differ first where the plain path's
+   top-2 logits lie within FLIP_ULPS bf16 ulps;
 4. the same weights in f32 on the card and on the CPU, teacher-forced
-   through 3 prompts for 16 decode steps, through the contiguous and the
-   paged engine: logits within atol 1e-3;
+   through 3 prompts for 16 decode steps and one 5-wide verify chunk,
+   through the contiguous and the paged engine: logits within atol 1e-3;
+   and in f32 on the card, each engine's greedy tokens with speculation on
+   equal to its tokens with it off on phase 3c's traffic (a) and (b);
 5. the training path at the same config (bf16 compute, f32 params, AdamW):
    5 train steps at batch 8, seq 2048 on one seeded batch; the counters are
    set to 0 just before and read after every step, which must show 1 plain
@@ -60,7 +75,11 @@ it fails:
    the decode and train rows against x + a then F.rms_norm, K1's backward
    against the plain one and autograd through F.rms_norm, and the host µs
    per K1 call at the decode shape; the train step's device time against
-   its wall, and its kernels by name (torch.profiler), K1 and K3-K5 each.
+   its wall, and its kernels by name (torch.profiler), K1 and K3-K5 each;
+   on phase 3c's traffic (a), speculation on against off for each engine:
+   decode tokens/s, tokens per tick, the acceptance rate, and one full
+   verify tick's device time and wall beside the plain tick's at the same
+   lengths.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -85,6 +104,7 @@ from ray_tpu_torch.models import (
 )
 from ray_tpu_torch.models import engine as engine_mod
 from ray_tpu_torch.models import paged_engine as paged_mod
+from ray_tpu_torch.models import speculative
 from ray_tpu_torch.ops import attention, fused, paged_attention
 from ray_tpu_torch.serve import LMBackend, ServeRequest
 
@@ -97,6 +117,10 @@ SLOTS, MAX_SEQ, NEW_TOKENS = 8, 2048, 32
 # max_seq sequence), on which that traffic queues for pages; the chunked
 # prefill of one long prompt.
 PAGE, PREFIX, TIGHT_PAGES, CHUNK, LONG_PROMPT = 128, 512, 17, 256, 1536
+# Speculative serving: 4 drafts from bigram prompt lookup; quoting prompts of
+# a 96-token passage and its first 32 tokens again, 64 new tokens.
+SPEC_K, SPEC_NGRAM = 4, 2
+QUOTE_PASSAGE, QUOTE_REPEAT, QUOTE_NEW = 96, 32, 64
 # The train step of scripts/model_bench.py's bench_config: batch 8, seq 2048.
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 2048, 5
 SEED = 0
@@ -721,6 +745,13 @@ def stream_all(backend, prompt, n):
     raise AssertionError("stream did not finish")
 
 
+def serving_prompts(V: int) -> list:
+    """Phase 3's 12 greedy prompts, 17-64 tokens (buckets 32 and 64)."""
+    rng = np.random.default_rng(SEED)
+    lens = [17, 20, 24, 29, 32, 33, 40, 47, 52, 58, 61, 64]
+    return [rng.integers(0, V, T0).tolist() for T0 in lens]
+
+
 def main_path(params, cfg) -> dict:
     log("phase 3: serving path, LMBackend at the flagship config, bf16, "
         "8 slots, max_seq 2048")
@@ -731,9 +762,7 @@ def main_path(params, cfg) -> dict:
     backend([ServeRequest(([1, 2, 3],), {"max_new_tokens": 4})])
     probe = PathProbe(backend.engine)
 
-    rng = np.random.default_rng(SEED)
-    lens = [17, 20, 24, 29, 32, 33, 40, 47, 52, 58, 61, 64]   # buckets 32, 64
-    prompts = [rng.integers(0, V, T0).tolist() for T0 in lens]
+    prompts = serving_prompts(V)
     reset_counts()
 
     t0 = time.perf_counter()
@@ -777,7 +806,8 @@ def main_path(params, cfg) -> dict:
         raise AssertionError(f"training kernels ran while serving: {stray}")
     check_launches_each(probe.prefill_launches + probe.tick_launches, L,
                         "prefill or tick")
-    return {"launches": launches, "probe": probe, "backend": backend}
+    return {"launches": launches, "probe": probe, "backend": backend,
+            "outs": outs}
 
 
 def check_launches_each(per_run, L: int, what: str) -> None:
@@ -820,6 +850,17 @@ def check_paged_launches(probes, L: int) -> dict:
     return total
 
 
+def paged_traffic(V: int):
+    """Phase 3b's requests: a 512-token prefix, 16 suffix lengths, the 16
+    shared-prefix prompts and one long prompt."""
+    rng = np.random.default_rng(SEED + 5)
+    prefix = rng.integers(0, V, PREFIX).tolist()
+    suffixes = rng.permutation(np.arange(8, 201))[:16]
+    shared = [prefix + rng.integers(0, V, int(n)).tolist() for n in suffixes]
+    long_prompt = rng.integers(0, V, LONG_PROMPT).tolist()
+    return prefix, suffixes, shared, long_prompt
+
+
 def paged_path(params, cfg) -> dict:
     """LMBackend(paged=True) at the flagship config, against LMBackend
     over the contiguous engine on the same requests. The contiguous runs
@@ -828,11 +869,7 @@ def paged_path(params, cfg) -> dict:
         f"flagship config, bf16, {SLOTS} slots, max_seq {MAX_SEQ}, page "
         f"size {PAGE}")
     V, L = cfg.vocab_size, cfg.n_layers
-    rng = np.random.default_rng(SEED + 5)
-    prefix = rng.integers(0, V, PREFIX).tolist()
-    suffixes = rng.permutation(np.arange(8, 201))[:16]
-    shared = [prefix + rng.integers(0, V, int(n)).tolist() for n in suffixes]
-    long_prompt = rng.integers(0, V, LONG_PROMPT).tolist()
+    prefix, suffixes, shared, long_prompt = paged_traffic(V)
 
     def served(backend, prompts, n):
         return backend([ServeRequest((p,), {"max_new_tokens": n})
@@ -923,7 +960,346 @@ def paged_path(params, cfg) -> dict:
     log(f"  launches {launches}: every tick exactly {L} paged_decode, 0 "
         f"decode_attention, 1 rms_norm and {2 * L} add_rms_norm")
     return {"launches": launches, "probe": probe_a, "backend": backend,
-            "contig": contig.engine, "contig_probe": contig_probe}
+            "contig": contig.engine, "contig_probe": contig_probe,
+            "want_shared": want_shared}
+
+
+# ------------------------------ phase 3c: speculative serving, both engines
+
+
+def ulp_bf16(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significand bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+# A greedy token of the speculative path may differ from the plain path's
+# only where the plain path's top-2 logits lie within this many bf16 ulps
+# of its top logit: one ulp for the two paths' roundings of each logit to
+# bf16 (half an ulp each), and one for each bf16 rounding the plain verify
+# attention makes and K6 does not (its scores, its probabilities, its
+# output), each taken to reach the logit as at most one ulp. A fault in the
+# verify (a wrong position, row or mask) moves logits by far more.
+FLIP_ULPS = 4
+
+
+def spec_traffic(V: int) -> dict:
+    """Phase 3c's requests: (a) 8 quoting prompts, each a seeded 96-token
+    passage followed by its first 32 tokens again (prompt lookup's own
+    traffic: extraction and summaries that quote the source); (b) phase
+    3's 12 greedy prompts; (e) one prompt whose QUOTE_NEW new tokens end at
+    exactly max_seq (the passage of (a)'s first prompt repeated)."""
+    rng = np.random.default_rng(SEED + 9)
+    quoting = []
+    for _ in range(SLOTS):
+        passage = rng.integers(0, V, QUOTE_PASSAGE).tolist()
+        quoting.append(passage + passage[:QUOTE_REPEAT])
+    passage = quoting[0][:QUOTE_PASSAGE]
+    boundary = (passage * (MAX_SEQ // QUOTE_PASSAGE + 1))[
+        :MAX_SEQ - QUOTE_NEW]
+    return {"quoting": quoting, "greedy": serving_prompts(V),
+            "boundary": boundary}
+
+
+class SpecProbe(PathProbe):
+    """PathProbe for speculative serving: also wraps the verify pass and
+    step(). Per pass (verify or decode): its kind and width, launches,
+    chunk, lengths and page tables (for replay). Per tick: the slots
+    active, its wall (step() less the prefills inside it), the tokens it
+    emitted and its pass. With ``gaps`` it also keeps, for every greedy
+    token a decode pass picks, the top-2 gap and top logit of its row,
+    by (prompt, index in the output), read after the tick's wall is
+    taken."""
+
+    def __init__(self, eng, gaps: bool = False):
+        super().__init__(eng)
+        self.passes, self.chunks, self.tables, self.steps = [], [], [], []
+        self.gaps = {} if gaps else None
+        self._pending = None
+        self._verify, self._step = eng._verify_all, eng.step
+        eng._verify_all, eng.step = self.verify, self.step
+
+    def _tables(self):
+        t = getattr(self.eng, "_tables", None)
+        return None if t is None else t.copy()
+
+    def verify(self, chunk):
+        eng = self.eng
+        active = sum(r is not None for r in eng.active)
+        self.tick_lengths.append((active, eng.lengths.copy()))
+        self.chunks.append(chunk.copy())
+        self.tables.append(self._tables())
+        torch.cuda.synchronize()
+        before = read_counts()
+        t0 = time.perf_counter()
+        logits = self._verify(chunk)
+        torch.cuda.synchronize()
+        self.ticks.append((active, (time.perf_counter() - t0) * 1e3))
+        self.tick_launches.append(count_delta(before))
+        self.passes.append(("verify", chunk.shape[1]))
+        return logits
+
+    def decode(self):
+        eng = self.eng
+        self.chunks.append(eng.tokens[:, None].copy())
+        self.tables.append(self._tables())
+        logits = super().decode()
+        self.passes.append(("decode", 1))
+        if self.gaps is not None:
+            self._pending = (logits, [
+                (s, tuple(r.prompt), len(r.out))
+                for s, r in enumerate(eng.active)
+                if r is not None and r.temperature == 0])
+        return logits
+
+    def step(self):
+        n_pre, n_pass = len(self.prefills), len(self.passes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events = self._step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(self.passes) > n_pass:
+            ms -= sum(m for _, m in self.prefills[n_pre:])
+            self.steps.append((self.ticks[-1][0], ms,
+                               len(events) - (len(self.prefills) - n_pre),
+                               len(self.passes) - 1))
+        if self._pending is not None:
+            logits, rows = self._pending
+            self._pending = None
+            top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+            for s, key, idx in rows:
+                self.gaps[key, idx] = (float(top[s, 0] - top[s, 1]),
+                                       float(top[s, 0]))
+        return events
+
+    def mark(self) -> int:
+        return len(self.steps)
+
+
+def served(backend, prompts, n, **kw):
+    return backend([ServeRequest((p,), dict(max_new_tokens=n, **kw))
+                    for p in prompts])
+
+
+def check_spec_launches(probe, L: int, paged: bool) -> dict:
+    """Every verify pass launches K1 2L+1 times (1 plain, 2L residual) and
+    no decode kernel; the contiguous engine runs no decode pass; a paged
+    pass with no drafts launches K1 2L+1 times and K7 L times; prefills
+    launch K1 per forward and no attention kernel. Returns the totals."""
+    verify = {n: 0 for n in COUNTED}
+    verify.update(rms_norm=1, add_rms_norm=2 * L)
+    decode = dict(verify, paged_decode_attention=L)
+    total = {n: 0 for n in COUNTED}
+    for i, ((kind, width), got) in enumerate(zip(probe.passes,
+                                                 probe.tick_launches)):
+        if kind == "decode" and not paged:
+            raise AssertionError(f"pass {i}: the contiguous engine ran its "
+                                 "decode pass with speculation on")
+        want = verify if kind == "verify" else decode
+        if got != want:
+            raise AssertionError(f"{kind} pass {i} (width {width}): "
+                                 f"launches {got}, expected {want}")
+    check_launches_each(probe.prefill_launches, L, "prefill")
+    for got in probe.prefill_launches:
+        if any(c for n, c in got.items()
+               if n not in ("rms_norm", "add_rms_norm")):
+            raise AssertionError(f"speculative prefill launches {got}")
+    for got in probe.tick_launches + probe.prefill_launches:
+        for n, c in got.items():
+            total[n] += c
+    return total
+
+
+def greedy_flips(name, got, want, prompts, gaps) -> list:
+    """Greedy requests whose speculative output differs from the plain
+    path's; at each first difference the plain path's top-2 gap must be
+    under FLIP_ULPS bf16 ulps of its top logit, else the run fails."""
+    flips = []
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap, top = gaps.get((tuple(p), j), (math.inf, 0.0))
+        bnd = FLIP_ULPS * ulp_bf16(top)
+        log(f"  {name}: greedy request (prompt {len(p)}) differs from the "
+            f"plain path at token {j}: plain top-2 gap {gap:.6g} at top "
+            f"logit {top:.6g}, bound {bnd:.6g} ({FLIP_ULPS} bf16 ulps)")
+        if not gap < bnd:
+            raise AssertionError(f"{name}: a greedy token differs where the "
+                                 f"plain path's top-2 gap {gap} is not under "
+                                 f"{bnd}")
+        flips.append((len(p), j, gap, bnd))
+    return flips
+
+
+def speculative_path(params, cfg, main: dict, paged: dict) -> dict:
+    """Both engines with speculative_k=4 through LMBackend at the flagship
+    config, against the same engines with speculation off on the same
+    requests. The plain runs come first, outside the counted window."""
+    log(f"phase 3c: speculative serving, LMBackend(speculative_k={SPEC_K}, "
+        f"speculative_ngram={SPEC_NGRAM}) and LMBackend(paged=True, ...) at "
+        f"the flagship config, bf16, {SLOTS} slots, max_seq {MAX_SEQ}, page "
+        f"size {PAGE}")
+    V, L = cfg.vocab_size, cfg.n_layers
+    tr = spec_traffic(V)
+    quoting, greedy, boundary = tr["quoting"], tr["greedy"], tr["boundary"]
+    prefix, _, shared, _ = paged_traffic(V)
+    common = dict(max_slots=SLOTS, max_seq=MAX_SEQ, device="cuda")
+    spec = dict(speculative_k=SPEC_K, speculative_ngram=SPEC_NGRAM)
+    paged_kw = dict(paged=True, page_size=PAGE)
+
+    # The plain paths: every greedy reference, and traffic (a)'s ticks.
+    plain = {}
+    for name, kw in (("contiguous", {}), ("paged", paged_kw)):
+        b = LMBackend(params, cfg, **common, **kw)
+        served(b, [[1, 2, 3]], 4)
+        pr = SpecProbe(b.engine, gaps=True)
+        ref = {"a": served(b, quoting, QUOTE_NEW)}
+        seg_a = (0, pr.mark())
+        ref["b"] = served(b, greedy, NEW_TOKENS)
+        ref["e"] = served(b, [boundary], QUOTE_NEW)
+        if kw:
+            ref["shared"] = served(b, shared, NEW_TOKENS)
+        plain[name] = {"ref": ref, "probe": pr, "seg_a": seg_a,
+                       "backend": b}
+    for k in ("a", "b", "e"):
+        if plain["paged"]["ref"][k] != plain["contiguous"]["ref"][k]:
+            raise AssertionError(f"({k}) the plain paged engine's greedy "
+                                 "outputs differ from the contiguous one's")
+    if plain["paged"]["ref"]["shared"] != paged["want_shared"]:
+        raise AssertionError("the plain paged engine's shared-prefix outputs "
+                             "differ from phase 3b's")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = {}
+    for name, kw in (("contiguous", {}), ("paged", paged_kw)):
+        b = LMBackend(params, cfg, **common, **spec, **kw)
+        pr = SpecProbe(b.engine)
+        out = {"a": served(b, quoting, QUOTE_NEW)}
+        seg_a = (0, pr.mark())
+        stats_a = b.stats()["speculative"]
+        out["b"] = served(b, greedy, NEW_TOKENS)
+        # (c) a sampled request beside 3 greedy ones, the batch twice.
+        mix = [ServeRequest((quoting[0],), {"max_new_tokens": NEW_TOKENS,
+                                            "temperature": 0.8,
+                                            "seed": 42})] + [
+            ServeRequest((p,), {"max_new_tokens": NEW_TOKENS})
+            for p in quoting[1:4]]
+        out["c"] = [b(mix), b(mix)]
+        # (d) a whole response alone, then the same request streamed.
+        out["d"] = [served(b, [quoting[4]], QUOTE_NEW)[0],
+                    stream_all(b, quoting[4], QUOTE_NEW)]
+        # (e) a request that ends at exactly max_seq.
+        seg_e = pr.mark()
+        out["e"] = served(b, [boundary], QUOTE_NEW)
+        seg_e = (seg_e, pr.mark())
+        if kw:
+            # The shared-prefix traffic: its prefix pages (published by the
+            # first request's prefill) must hold the same K/V bits after
+            # every verify pass of the 16.
+            out["shared_first"] = served(b, shared[:1], NEW_TOKENS)
+            eng = b.engine
+            pages = eng._cached_prefix(eng._prefix_keys(prefix),
+                                       promote=False)
+            if len(pages) != PREFIX // PAGE:
+                raise AssertionError(f"{len(pages)} prefix pages cached, "
+                                     f"expected {PREFIX // PAGE}")
+            keep = (eng.k_pages[:, pages].clone(),
+                    eng.v_pages[:, pages].clone())
+            n_pass = len(pr.passes)
+            out["shared"] = served(b, shared, NEW_TOKENS)
+            same = (torch.equal(eng.k_pages[:, pages], keep[0])
+                    and torch.equal(eng.v_pages[:, pages], keep[1]))
+            sums = [float(t.float().abs().sum()) for t in keep]
+            hit = sum(1 for i in range(n_pass, len(pr.passes))
+                      if pr.passes[i][0] == "verify"
+                      and sum(int(pg) in pr.tables[i][s]
+                              for s in range(SLOTS)
+                              for pg in pages[:1]) >= 2)
+            log(f"  (shared) 16 requests on a {PREFIX}-token prefix: its "
+                f"{len(pages)} pages (checksums |K| {sums[0]:.6g}, |V| "
+                f"{sums[1]:.6g}) read by two or more slots in {hit} verify "
+                f"passes; bits after those passes equal: {same}")
+            if not same:
+                raise AssertionError("a verify pass wrote a shared prefix "
+                                     "page")
+            if hit == 0:
+                raise AssertionError("no verify pass ran with the prefix "
+                                     "pages shared")
+        runs[name] = {"out": out, "probe": pr, "backend": b,
+                      "seg_a": seg_a, "seg_e": seg_e, "stats_a": stats_a}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall_s = time.perf_counter() - t0
+
+    total = {n: 0 for n in COUNTED}
+    for name, run in runs.items():
+        pr, out = run["probe"], run["out"]
+        got = check_spec_launches(pr, L, name == "paged")
+        for n, c in got.items():
+            total[n] += c
+        kinds = [k for k, _ in pr.passes]
+        widths = sorted({w for k, w in pr.passes if k == "verify"})
+        log(f"  {name}: {len(pr.prefills)} prefills, {kinds.count('verify')} "
+            f"verify passes (widths {widths}), {kinds.count('decode')} "
+            f"decode passes; every verify pass {2 * L + 1} K1 (rms_norm 1, "
+            f"add_rms_norm {2 * L}), 0 decode_attention, 0 "
+            f"paged_decode_attention" + (
+                f"; every draft-less tick {2 * L + 1} K1 and {L} "
+                f"paged_decode_attention" if name == "paged" else ""))
+        for k, n in (("a", QUOTE_NEW), ("b", NEW_TOKENS), ("e", QUOTE_NEW)):
+            for o in out[k]:
+                if len(o) != n or not all(0 <= t < V for t in o):
+                    raise AssertionError(f"{name} ({k}): bad output {o}")
+        if len(boundary) + len(out["e"][0]) != MAX_SEQ:
+            raise AssertionError(f"{name} (e) does not end at max_seq")
+        lo, hi = run["seg_e"]
+        tail = [pr.passes[pr.steps[i][3]] for i in range(lo, hi)][-3:]
+        log(f"  {name} (e): a {len(boundary)}-token prompt + {QUOTE_NEW} "
+            f"new tokens ends at max_seq {MAX_SEQ}; its last ticks ran "
+            f"{tail}")
+        c1, c2 = out["c"]
+        if c1 != c2 or len(c1[0]) != NEW_TOKENS:
+            raise AssertionError(f"{name} (c): the batch with a seeded "
+                                 f"sampled request differs between runs")
+        log(f"  {name} (c): sampled (T=0.8, seed=42) beside 3 greedy, the "
+            f"batch twice, equal: {c1[0][:8]}...")
+        if out["d"][0] != out["d"][1]:
+            raise AssertionError(f"{name} (d): stream {out['d'][1]} != whole "
+                                 f"response {out['d'][0]}")
+        log(f"  {name} (d): streamed request equals its whole response")
+        ref = plain[name]["ref"]
+        gaps = plain[name]["probe"].gaps
+        flips, n_req = [], 0
+        for k, prompts in (("a", quoting), ("b", greedy), ("e", [boundary]),
+                           ("shared", shared)):
+            if k in out:
+                flips += greedy_flips(f"{name} ({k})", out[k], ref[k],
+                                      prompts, gaps)
+                n_req += len(prompts)
+        all_gaps = np.array([g / (FLIP_ULPS * ulp_bf16(t))
+                             for g, t in gaps.values()])
+        log(f"  {name}: {len(flips)} of {n_req} greedy requests differ from "
+            f"the plain path's (bf16; each at a near-tie within "
+            f"{FLIP_ULPS} ulps); over the plain path's {len(all_gaps)} "
+            f"decode tokens the top-2 gap is under that bound for "
+            f"{(all_gaps < 1).mean():.1%}, median {np.median(all_gaps):.2f} "
+            f"times it")
+        log(f"  {name} stats()['speculative']: "
+            f"{run['backend'].stats()['speculative']}; after (a) alone: "
+            f"{run['stats_a']}")
+        run["flips"], run["n_greedy"] = flips, n_req
+    log(f"  phase 3c in {wall_s:.3f} s; launches {launches}")
+    if total != launches:
+        raise AssertionError(f"launches {launches} != the prefills' and "
+                             f"passes' {total}")
+    for n in ("rms_norm", "add_rms_norm", "paged_decode_attention"):
+        if launches[n] == 0:
+            raise AssertionError(f"{n} never launched in phase 3c")
+    return {"launches": launches, "runs": runs, "plain": plain}
 
 
 # ------------------------------------- phase 4: card vs CPU, f32, full width
@@ -986,9 +1362,49 @@ def card_vs_cpu(params, engine_cls, what: str, **kw) -> float:
             for e in engines:
                 e.tokens[:3] = nxt.numpy()
                 e.lengths[:3] += 1
-    log(f"  max_abs_err {worst:.3e} over 3 prefills + 16 steps; argmax "
-        f"agrees on all {checked} decisive rows ({flips} near-ties differ)")
+        # One speculative verify chunk (the current token and SPEC_K seeded
+        # drafts) at the lengths the decode steps reached.
+        drafts = rng.integers(0, cfg.vocab_size, (SLOTS, SPEC_K))
+        chunk = np.concatenate([engines[1].tokens[:, None],
+                                drafts.astype(np.int32)], axis=1)
+        logits = [e._verify_all(chunk) for e in engines]
+        compare(logits[0][:3], logits[1][:3], "verify chunk")
+    log(f"  max_abs_err {worst:.3e} over 3 prefills + 16 steps + one "
+        f"{SPEC_K + 1}-wide verify chunk; argmax agrees on all {checked} "
+        f"decisive rows ({flips} near-ties differ)")
     return worst
+
+
+def spec_f32_equal(params) -> None:
+    """f32 at full width on the card: each engine's greedy tokens with
+    speculation on equal its tokens with speculation off, on phase 3c's
+    traffic (a) and (b) together."""
+    log(f"phase 4: f32 at full width on the card, greedy tokens with "
+        f"speculative_k={SPEC_K} vs 0 on traffic (a) + (b), both engines")
+    cfg = TransformerConfig(dtype=torch.float32, **FLAGSHIP)
+    tr = spec_traffic(cfg.vocab_size)
+    for name, cls, kw in (
+            ("contiguous", engine_mod.GenerationEngine, {}),
+            ("paged", paged_mod.PagedGenerationEngine, dict(page_size=PAGE))):
+        outs = []
+        for k in (0, SPEC_K):
+            eng = cls(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                      speculative_k=k, speculative_ngram=SPEC_NGRAM,
+                      device="cuda", **kw)
+            ids = ([eng.submit(p, QUOTE_NEW) for p in tr["quoting"]]
+                   + [eng.submit(p, NEW_TOKENS) for p in tr["greedy"]])
+            res = eng.run_until_done()
+            outs.append([res[i] for i in ids])
+            stats = dict(eng.spec_stats)
+            del eng
+            torch.cuda.empty_cache()
+        diff = [i for i, (a, b) in enumerate(zip(*outs)) if a != b]
+        log(f"  {name}: {len(outs[0])} greedy requests, {len(diff)} differ "
+            f"(speculative run: {stats})")
+        if diff:
+            raise AssertionError(f"{name}: f32 speculative greedy tokens "
+                                 f"differ from plain ones for requests "
+                                 f"{diff}")
 
 
 # ------------------------------------------------ phase 5: the train path
@@ -1392,6 +1808,113 @@ def paged_timings(paged: dict, short_lens: list, card: str) -> dict:
     return out
 
 
+def spec_timings(spec: dict, card: str) -> None:
+    """Traffic (a) at 8 slots, speculation on against off, each engine:
+    decode tokens/s (tokens the ticks emitted over the ticks' wall, step()
+    less its prefills), tokens per tick and per slot-tick, the acceptance
+    rate, and the device time of one verify tick of full width at 8 active
+    slots (its median-wall one, replayed behind a sleep) beside its wall,
+    and the plain tick's at the same lengths."""
+    log(f"phase 7: speculative timings on {card}, traffic (a): {SLOTS} "
+        f"quoting requests x {QUOTE_NEW} tokens")
+    for name in ("contiguous", "paged"):
+        run, ref = spec["runs"][name], spec["plain"][name]
+        rows = {}
+        for label, r in (("plain", ref), ("speculative", run)):
+            lo, hi = r["seg_a"]
+            steps = r["probe"].steps[lo:hi]
+            wall = sum(st[1] for st in steps)
+            toks = sum(st[2] for st in steps)
+            full = [st[1] for st in steps if st[0] == SLOTS]
+            rows[label] = dict(ticks=len(steps), tokens=toks, wall_ms=wall,
+                               median_ms=float(np.median(full)))
+            log(f"  {name} {label}: {toks} tokens in {len(steps)} ticks, "
+                f"{wall:.3f} ms of tick wall: {toks / wall * 1e3:.1f} decode "
+                f"tokens/s, {toks / len(steps):.3f} tokens a tick, "
+                f"{sum(st[2] / st[0] for st in steps) / len(steps):.3f} a "
+                f"slot-tick; median tick at {SLOTS} active "
+                f"{rows[label]['median_ms']:.3f} ms [{card}]")
+        st = run["stats_a"]
+        log(f"  {name}: acceptance rate {st['accepted']} / {st['drafted']} = "
+            f"{st['accepted'] / max(st['drafted'], 1):.4f}, {st['emitted']} "
+            f"tokens emitted by greedy slots in {st['ticks']} ticks [{card}]")
+        pr = run["probe"]
+        lo, hi = run["seg_a"]
+        cands = sorted((s for s in pr.steps[lo:hi] if s[0] == SLOTS
+                        and pr.passes[s[3]] == ("verify", SPEC_K + 1)),
+                       key=lambda s: s[1])
+        if not cands:
+            raise AssertionError(f"{name}: no verify tick of width "
+                                 f"{SPEC_K + 1} at {SLOTS} active slots")
+        _, v_wall, v_toks, i = cands[len(cands) // 2]
+        eng = run["backend"].engine
+        chunk, lens = pr.chunks[i], pr.tick_lengths[i][1]
+        ints = eng._device_ints
+        tokens = ints(np.ascontiguousarray(chunk[:, 0]))
+        if name == "contiguous":
+            verify = (speculative._batched_verify, (
+                eng.params, ints(chunk), ints(lens), eng.cache_k,
+                eng.cache_v, eng.cfg))
+            plain = (engine_mod._batched_decode, (
+                eng.params, tokens, ints(lens), eng.cache_k, eng.cache_v,
+                eng.cfg))
+        else:
+            tables = ints(pr.tables[i])
+            verify = (paged_mod._paged_verify, (
+                eng.params, ints(chunk), ints(lens), tables, eng.k_pages,
+                eng.v_pages, eng.cfg))
+            plain = (paged_mod._paged_decode, (
+                eng.params, tokens, ints(lens), tables, eng.k_pages,
+                eng.v_pages, eng.cfg))
+        # One tick queued behind the sleep: a verify tick's ~530 launches
+        # twice over do not fit in the launch queue, and the host would
+        # then wait for the sleep to end.
+        with torch.inference_mode():
+            dev = {what: min(device_ms(f"{name} {what} tick", fn, [args], 1,
+                                       sleep_cycles=2_000_000_000)
+                             for _ in range(3))
+                   for what, (fn, args) in (("verify", verify),
+                                            ("plain", plain))}
+        p_wall = rows["plain"]["median_ms"]
+        log(f"  {name} verify tick ({SPEC_K + 1} wide, {SLOTS} slots, "
+            f"lengths {lens.min()}-{lens.max()}, {v_toks} tokens): device "
+            f"{dev['verify']:.3f} ms back to back vs {v_wall:.3f} ms wall, "
+            f"card busy {dev['verify'] / v_wall:.1%}; plain tick at the same "
+            f"lengths: device {dev['plain']:.3f} ms vs {p_wall:.3f} ms median "
+            f"wall, busy {dev['plain'] / p_wall:.1%} [{card}]")
+        for what, (fn, args) in (("verify", verify), ("plain", plain)):
+            tick_profile(f"{name} {what} tick", fn, args, card)
+
+
+def tick_profile(what: str, fn, args, card: str) -> None:
+    """One call under torch.profiler: its device events and their summed
+    time, the kernels that take the most, and the PyTorch ops whose
+    kernels do (an op's device time includes the ops inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in avg
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in kern)
+    if total == 0:
+        log(f"  {what}: torch.profiler recorded no device time")
+        return
+    log(f"  {what} under torch.profiler: {total:.3f} ms of device time in "
+        f"{sum(r[2] for r in kern)} device events [{card}]")
+    for name, ms, count in kern[:4]:
+        log(f"    {ms:8.3f} ms x{count:<4d} {name[:72]}")
+    ops = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in avg
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith("aten::")), key=lambda r: -r[1])
+    log("    ops: " + ", ".join(f"{k} {ms:.3f} ms x{c}"
+                                for k, ms, c in ops[:6]))
+
+
 def train_timings(card: str) -> dict:
     """K2-K5 at the training path's shapes: the kernel, its plain version
     and the PyTorch call that computes the same function."""
@@ -1681,14 +2204,17 @@ def main() -> int:
     params = init_params(cuda_gen(SEED), cfg, device="cuda")
     main = main_path(params, cfg)
     paged = paged_path(params, cfg)
+    spec = speculative_path(params, cfg, main, paged)
     card_vs_cpu(params, engine_mod.GenerationEngine, "contiguous engine")
     card_vs_cpu(params, paged_mod.PagedGenerationEngine, "paged engine",
                 page_size=PAGE)
+    spec_f32_equal(params)
     train = train_path(card)
     train_card_vs_cpu()
     times = timings(main, card)
     times.update(paged_timings(paged, times["decode_attention"]["lens"],
                                card))
+    spec_timings(spec, card)
     times.update(train_timings(card))
     train_breakdown(card, train["step_ms"])
 

@@ -15,13 +15,19 @@ them; here the layer loop is a Python ``for`` and every cache write is an
 in-place update of the pool tensors. On the card the decode pass runs the
 hand-written RMSNorm (2L+1 launches) and flash-decode (L launches) kernels.
 
-Subclass hooks (the paged engine, ``models/paged_engine.py``, overrides
-them): ``_alloc_cache``, ``_decode_all``, ``_prefill_slot``,
-``_release_slot`` and ``_can_admit``.
+With ``speculative_k > 0`` every tick runs n-gram speculative decoding
+(``models/speculative.py``): prompt-lookup drafts of up to K tokens per
+slot are verified in one (K+1)-position forward (width 1 when nothing
+drafts), and each slot emits its longest verified prefix plus one token.
+That forward runs K1 (2L+1 launches) and the plain masked attention, as
+the JAX package's runs XLA; K6 does not run while speculation is on.
 
-Left for later slices, and refused here with NotImplementedError:
-speculative decoding (``speculative_k > 0``) and a tensor-parallel
-``mesh``.
+Subclass hooks (the paged engine, ``models/paged_engine.py``, overrides
+them): ``_alloc_cache``, ``_decode_all``, ``_verify_all``,
+``_prefill_slot``, ``_release_slot`` and ``_can_admit``.
+
+Left for a later slice, and refused here with NotImplementedError: a
+tensor-parallel ``mesh``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from .. import Device, default_device
 from ..ops.attention import decode_attention, masked_gqa_attention
+from .speculative import NgramIndex, _batched_verify, longest_accept
 from .transformer import (
     Params, TransformerConfig, _decoder, _layers, _rope, to_compute,
 )
@@ -152,7 +159,7 @@ def _prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
 
 class _Request:
     __slots__ = ("req_id", "prompt", "max_new_tokens", "out", "temperature",
-                 "rng", "stop")
+                 "rng", "ng", "stop")
 
     def __init__(self, req_id: int, prompt: List[int], max_new_tokens: int,
                  temperature: float = 0.0, seed: Optional[int] = None,
@@ -166,14 +173,19 @@ class _Request:
         # Per-request stream: an explicit seed -> same sampled continuation
         # regardless of batch composition; no seed -> fresh OS entropy.
         self.rng = np.random.default_rng(seed)
+        self.ng = None   # lazy NgramIndex (speculative decoding)
 
-    def hit_stop(self) -> bool:
-        """True when the output ends with any stop sequence — stop tokens
-        stay IN the output, like EOS. Only the tail is inspected."""
+    def hit_stop(self, extra: Optional[List[int]] = None) -> bool:
+        """True when the output (plus tentative ``extra`` tokens) ends
+        with any stop sequence — stop tokens stay IN the output, like
+        EOS. Only the tail is inspected: copying the whole output per
+        emitted token would be O(n^2) over a generation."""
         if not self.stop:
             return False
-        n = len(self.out)
-        return any(n >= len(sq) and self.out[-len(sq):] == sq
+        longest = max(len(sq) for sq in self.stop)
+        out = self.out[-longest:] + extra if extra else self.out
+        n_real = len(self.out) + len(extra or [])
+        return any(n_real >= len(sq) and out[-len(sq):] == sq
                    for sq in self.stop)
 
     def pick(self, logits_row: np.ndarray) -> int:
@@ -193,21 +205,23 @@ class GenerationEngine:
 
     ``submit()`` queues a request; ``step()`` admits queued requests into
     free slots (bucketed in-place prefill) and advances every active slot
-    by one token; ``run_until_done()`` drains everything. Greedy results
+    by one token (by up to ``speculative_k + 1`` with speculation on);
+    ``run_until_done()`` drains everything. Greedy results
     equal single-request ``generate()``; sampled requests (temperature > 0)
     are seed-reproducible through a host-side per-request numpy PRNG, the
     same stream as the JAX engine's.
     """
+
+    # Run draft-less speculative ticks through _decode_all (the
+    # flash-decode kernel) instead of a width-1 verify chunk; the paged
+    # engine does.
+    _spec_plain_when_draftless = False
 
     def __init__(self, params: Params, cfg: TransformerConfig, *,
                  max_slots: int = 4, max_seq: Optional[int] = None,
                  eos_id: Optional[int] = None, speculative_k: int = 0,
                  speculative_ngram: int = 2, mesh=None,
                  prefill_chunk: int = 0, device: Device = None):
-        if int(speculative_k) > 0:
-            raise NotImplementedError(
-                "speculative decoding (speculative_k > 0) is not ported yet; "
-                "it comes with the speculative-decoding slice of ROADMAP.md")
         if mesh is not None:
             raise NotImplementedError(
                 "a tensor-parallel mesh is not ported yet; it comes with the "
@@ -215,9 +229,9 @@ class GenerationEngine:
         self.device = default_device(device)
         self.cfg = cfg
         self.slots = max_slots
-        # N-gram speculative decoding's knobs, as the JAX engine keeps them;
-        # with speculative_k 0 (the only value taken) the n-gram order is
-        # inert there too.
+        # N-gram speculative decoding (models/speculative.py): verify K
+        # prompt-lookup drafts per tick in one (K+1)-position forward; 0
+        # disables it, and the n-gram order is then inert.
         self.speculative_k = int(speculative_k)
         self.speculative_ngram = int(speculative_ngram)
         self.max_seq = max_seq or cfg.max_seq_len
@@ -243,6 +257,9 @@ class GenerationEngine:
         self.queue: List[_Request] = []
         self.done: Dict[int, List[int]] = {}
         self._next_id = 0
+        # Speculation telemetry: acceptance rate = accepted / drafted.
+        self.spec_stats = {"ticks": 0, "drafted": 0, "accepted": 0,
+                           "emitted": 0}
 
     def _alloc_cache(self) -> None:
         """Allocate the contiguous KV cache [L, slots, max_seq, KH, Dh]. A
@@ -309,6 +326,8 @@ class GenerationEngine:
         events = self._admit()
         if not any(r is not None for r in self.active):
             return events
+        if self.speculative_k > 0:
+            return self._spec_step(events)
         return self._emit_single(self._decode_all(), events)
 
     def _emit_single(self, logits: torch.Tensor,
@@ -329,6 +348,8 @@ class GenerationEngine:
             token = (req.pick(rows[row_of[slot]]) if slot in row_of
                      else int(nxt[slot]))
             req.out.append(token)
+            if req.ng is not None:
+                req.ng.extend([token])
             self.lengths[slot] += 1
             self.tokens[slot] = token
             finished = (len(req.out) >= req.max_new_tokens
@@ -359,6 +380,118 @@ class GenerationEngine:
             self.step()
         out, self.done = self.done, {}
         return out
+
+    # ---- speculative decoding ----
+
+    def _spec_possible(self) -> bool:
+        """The (K+1)-wide verify chunk writes cache rows lengths..lengths+K
+        for EVERY slot; a slot within K+1 rows of max_seq would write past
+        the end (clamped onto valid rows), so such ticks run a width-1
+        chunk — only the last few tokens of a nearly full slot."""
+        K = self.speculative_k
+        for slot, req in enumerate(self.active):
+            if req is not None \
+                    and self.lengths[slot] + K + 1 > self.max_seq:
+                return False
+        return True
+
+    def _spec_step(self, events: List[Tuple[int, int, bool]]
+                   ) -> List[Tuple[int, int, bool]]:
+        """One speculative tick: propose prompt-lookup drafts per slot
+        (incremental NgramIndex, O(1) a token), verify them all in a single
+        (K+1)-position forward, emit the longest verified prefix + one
+        bonus token per slot. Draft-less ticks (no n-gram hit anywhere,
+        cache-boundary slots, all-sampling batches) run the SAME verify
+        forward at width 1, so with speculation on every logit comes from
+        one forward and greedy acceptance is exact by construction.
+        Sampling slots accept no drafts; their next token samples from
+        chunk position 0. Greedy slots take the device argmax as one
+        [B, K+1] int copy; only the sampling slots' position-0 logits rows
+        come to the host."""
+        B, K = self.slots, self.speculative_k
+        drafts = np.zeros((B, K), np.int32)
+        dlen = np.zeros(B, np.int32)
+        if self._spec_possible():
+            for slot, req in enumerate(self.active):
+                if req is None or req.temperature > 0:
+                    continue
+                if req.ng is None:
+                    req.ng = NgramIndex(self.speculative_ngram,
+                                        req.prompt + req.out)
+                room = min(K, self.max_seq - len(req.ng.ctx) - 1,
+                           req.max_new_tokens - len(req.out) - 1)
+                if room <= 0:
+                    continue
+                d = req.ng.propose(room)
+                dlen[slot] = len(d)
+                drafts[slot, :len(d)] = d
+        self.spec_stats["ticks"] += 1
+        width = K + 1 if dlen.any() else 1
+        if width == 1 and self._spec_plain_when_draftless:
+            # Paged engine: a width-1 verify would gather the whole page
+            # pool per layer, the sweep the paged-decode kernel K7 exists
+            # to skip; draft-less ticks take it instead (the near-tie
+            # caveat of models/speculative.py applies).
+            return self._emit_single(self._decode_all(), events)
+        chunk = np.concatenate(
+            [self.tokens[:, None], drafts[:, :width - 1]], axis=1)
+        logits = self._verify_all(chunk)                        # [B, S, V]
+        greedy = torch.argmax(logits, dim=-1).to(
+            torch.int32).cpu().numpy()                          # [B, S]
+        sampling_slots = [s for s, r in enumerate(self.active)
+                          if r is not None and r.temperature > 0]
+        rows = (logits[sampling_slots, 0].float().cpu().numpy()
+                if sampling_slots else None)
+        row_of = {s: i for i, s in enumerate(sampling_slots)}
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            greedy_slot = slot not in row_of
+            if greedy_slot:
+                a = longest_accept(drafts[slot], int(dlen[slot]),
+                                   greedy[slot])
+                emitted = [int(t) for t in greedy[slot, :a + 1]]
+            else:
+                emitted = [req.pick(rows[row_of[slot]])]
+            # Truncate at max_new_tokens / EOS / a stop sequence (each
+            # finishes the slot).
+            out_tokens: List[int] = []
+            finished = False
+            for t in emitted:
+                out_tokens.append(t)
+                if (len(req.out) + len(out_tokens) >= req.max_new_tokens
+                        or (self.eos_id is not None and t == self.eos_id)
+                        or req.hit_stop(out_tokens)):
+                    finished = True
+                    break
+            if greedy_slot:
+                # Counted AFTER truncation: tokens cut at EOS or
+                # max_new_tokens must not inflate the acceptance rate.
+                st = self.spec_stats
+                st["drafted"] += int(dlen[slot])
+                st["accepted"] += min(a, len(out_tokens) - 1)
+                st["emitted"] += len(out_tokens)
+            req.out.extend(out_tokens)
+            if req.ng is not None:
+                req.ng.extend(out_tokens)
+            self.lengths[slot] += len(out_tokens)
+            self.tokens[slot] = out_tokens[-1]
+            for i, t in enumerate(out_tokens):
+                events.append((req.req_id, t,
+                               finished and i == len(out_tokens) - 1))
+            if finished:
+                self.done[req.req_id] = req.out
+                self._release_slot(slot)
+        return events
+
+    def _verify_all(self, chunk: np.ndarray) -> torch.Tensor:
+        """Speculative verify over every slot (chunk [B, S]); returns
+        logits [B, S, V]. Subclass hook: the paged engine routes the
+        chunk's cache writes through its page tables."""
+        return _batched_verify(
+            self.params, self._device_ints(chunk),
+            self._device_ints(self.lengths), self.cache_k, self.cache_v,
+            self.cfg)
 
     # ---- internals ----
 

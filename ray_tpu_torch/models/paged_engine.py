@@ -33,9 +33,14 @@ their scatter rows to the scratch page): another live sequence may be
 attending to them, and a re-computed row can differ in low bits when the
 original prefill ran at a different bucket length.
 
-Left for later slices, and refused with NotImplementedError by the base
-engine: speculative decoding (``speculative_k > 0``, whose paged verify
-comes with it) and a tensor-parallel ``mesh``.
+Speculative decoding (``speculative_k > 0``) verifies through the page
+tables (``_paged_verify``): the chunk's rows scatter through each slot's
+table, out-of-range positions and -1 entries to the scratch page, and
+attention runs over the gathered pool, plain PyTorch as the JAX package's
+is XLA. A tick with no drafts anywhere takes ``_decode_all`` and so K7.
+
+Left for a later slice, and refused with NotImplementedError by the base
+engine: a tensor-parallel ``mesh``.
 """
 
 from __future__ import annotations
@@ -87,6 +92,58 @@ def _paged_decode(params: Params, tokens: torch.Tensor,
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
                  cfg.norm_eps, attend)
     return x[:, 0] @ params["embed"].T
+
+
+def _paged_verify(params: Params, tokens: torch.Tensor,
+                  lengths: torch.Tensor, tables: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  cfg: TransformerConfig) -> torch.Tensor:
+    """Speculative verify through page indirection: tokens [B, S]
+    (current + S-1 drafts) at positions lengths..lengths+S-1 -> logits
+    [B, S, V]. Chunk K/V rows scatter IN PLACE through each slot's page
+    table; positions past the table and -1 entries go to the scratch page
+    0, so a draft position past a request's reserved pages can never
+    corrupt a live page. Shared prefix pages lie strictly before the
+    prompt's end and so before every chunk position: the verify never
+    writes them. Several slots' scratch rows may collide on page 0 (which
+    of the values lands is unspecified); that is harmless because page 0
+    is never attended by a position whose logits are used: those positions
+    lie inside their slot's reserved pages. Attention gathers the pool to
+    the logical layout and masks col <= lengths+i (plain PyTorch, as the
+    JAX package's is XLA; chunk widths are small)."""
+    B, S = tokens.shape
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ps = k_pages.shape[2]
+    P = tables.shape[1]
+    dev = tokens.device
+    x = params["embed"][tokens]                                 # [B, S, E]
+    positions = (lengths[:, None].long()
+                 + torch.arange(S, device=dev)[None, :])        # [B, S]
+    page_idx = positions // ps
+    page = torch.where(page_idx < P,
+                       tables.long().gather(1, page_idx.clamp_max(P - 1)),
+                       -1)
+    rows = (page.clamp_min(0) * ps + positions % ps).reshape(-1)  # [B*S]
+    mask = (torch.arange(P * ps, device=dev)[None, None, :]
+            <= positions[:, :, None])                           # [B, S, P*ps]
+
+    def attend(i, layer, h):
+        q = _rope((h @ layer["wq"]).reshape(B, S, H, Dh), positions,
+                  cfg.rope_theta)
+        k = _rope((h @ layer["wk"]).reshape(B, S, KH, Dh), positions,
+                  cfg.rope_theta)
+        v = (h @ layer["wv"]).reshape(B, S, KH, Dh)
+        write_paged(k_pages[i], rows, k.reshape(-1, KH, Dh))
+        write_paged(v_pages[i], rows, v.reshape(-1, KH, Dh))
+        buf_k = paged_gather(k_pages[i], tables)            # [B, P*ps, ...]
+        buf_v = paged_gather(v_pages[i], tables)
+        attn = masked_gqa_attention(q, buf_k, buf_v, mask).reshape(
+            B, S, H * Dh)
+        return attn @ layer["wo"]
+
+    x = _decoder(x, _layers(params, cfg), params["final_norm"],
+                 cfg.norm_eps, attend)
+    return x @ params["embed"].T                                # [B, S, V]
 
 
 def _paged_prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
@@ -173,6 +230,10 @@ class PagedGenerationEngine(GenerationEngine):
     pool is exhausted. Page 0 is reserved as the scratch target for
     pad/idle writes.
     """
+
+    # Draft-less speculative ticks take K7 (_decode_all): a width-1 verify
+    # would gather the whole page pool per layer.
+    _spec_plain_when_draftless = True
 
     def __init__(self, params: Params, cfg: TransformerConfig, *,
                  max_slots: int = 4, max_seq: Optional[int] = None,
@@ -276,6 +337,12 @@ class PagedGenerationEngine(GenerationEngine):
     def _decode_all(self) -> torch.Tensor:
         return _paged_decode(
             self.params, self._device_ints(self.tokens),
+            self._device_ints(self.lengths), self._device_ints(self._tables),
+            self.k_pages, self.v_pages, self.cfg)
+
+    def _verify_all(self, chunk: np.ndarray) -> torch.Tensor:
+        return _paged_verify(
+            self.params, self._device_ints(chunk),
             self._device_ints(self.lengths), self._device_ints(self._tables),
             self.k_pages, self.v_pages, self.cfg)
 

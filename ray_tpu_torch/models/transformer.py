@@ -139,15 +139,18 @@ def _add_rms_norm(x: torch.Tensor, a: torch.Tensor, weight: torch.Tensor,
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
           theta: float) -> torch.Tensor:
-    """x: [B, T, H, D]; rotate pairs (d, d + D/2) at ``positions`` [T],
-    in f32, cast back to x's dtype."""
+    """x: [B, T, H, D]; rotate pairs (d, d + D/2) at ``positions`` [T]
+    (shared by the batch) or [B, T] (per sequence: a speculative verify
+    chunk starts at each slot's own length), in f32, cast back to x's
+    dtype. The angles broadcast over the batch, so one launch serves every
+    slot, with the per-element f32 math of the JAX package's vmap."""
     D = x.shape[-1]
     half = D // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
-    angles = positions[:, None].float() * freqs[None, :]          # [T, half]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
+    angles = positions[..., None].float() * freqs     # [(B,) T, half]
+    cos = torch.cos(angles).unsqueeze(-2)             # [(B,) T, 1, half]
+    sin = torch.sin(angles).unsqueeze(-2)
     x1, x2 = x[..., :half], x[..., half:]
     rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rotated.to(x.dtype)

@@ -23,10 +23,13 @@ instead: the KV cache is a pool of ``num_pages`` pages of ``page_size``
 rows with prefix caching, and admission queues FIFO on the page budget;
 outputs are the same.
 
-Left for later slices, and refused here with NotImplementedError: tensor
-parallelism (``tp > 1``) and speculative decoding (``speculative_k > 0``,
-refused by the engines; ``speculative_ngram``, its n-gram order, is taken
-as in the JAX package and is inert while ``speculative_k`` is 0).
+``speculative_k > 0`` turns on n-gram speculative decoding in either
+engine (``models/speculative.py``; ``speculative_ngram`` is the n-gram
+order), exact for greedy requests; ``stats()["speculative"]`` reports its
+ticks, drafted, accepted and emitted tokens, and the acceptance rate.
+
+Left for a later slice, and refused here with NotImplementedError: tensor
+parallelism (``tp > 1``).
 """
 
 from __future__ import annotations
@@ -273,16 +276,23 @@ class LMBackend:
             return {"tokens": out, "done": done}
 
     def stats(self) -> dict:
-        """Engine telemetry for dashboards (the speculation counters
-        arrive with speculative decoding)."""
+        """Engine and speculation telemetry for dashboards and canarying.
+        ``"speculative"`` is there at every ``speculative_k`` (all zero
+        when it is 0); ``acceptance_rate`` appears once a draft was
+        made."""
         with self._cond:
             eng = self.engine
+            st = dict(eng.spec_stats)
+            if st["drafted"]:
+                st["acceptance_rate"] = round(
+                    st["accepted"] / st["drafted"], 3)
             return {
                 "slots": eng.slots,
                 "active": sum(r is not None for r in eng.active),
                 "queued": len(eng.queue),
                 "streams": len(self._streams),
                 "poisoned": self._poisoned is not None,
+                "speculative": st,
             }
 
     def stream_cancel(self, token: str) -> bool:

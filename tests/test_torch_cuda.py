@@ -589,3 +589,157 @@ def test_paged_engine_on_card_equals_contiguous_engine(dev, dtype):
         res = eng.run_until_done()
         outs.append([res[i] for i in ids])
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------- speculative decoding
+
+_SPEC_CFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, d_ff=512, max_seq_len=64)    # head_dim 64
+
+
+def _spec_setup(seed):
+    from ray_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(dtype=torch.float32, **_SPEC_CFG)
+    params = init_params(torch.Generator().manual_seed(seed), cfg,
+                         device="cpu")
+    return cfg, params
+
+
+def _verify_inputs(which, cfg, lengths, seed):
+    """tokens [B, 4] and a random cache (contiguous [L, B, 32, KH, Dh]) or
+    pool (paged: 10 pages of 8 rows, tables with -1 entries and a position
+    past the table) for the verify forwards, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    B, S = len(lengths), 4
+    L, KH, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           dtype=torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    if which == "contiguous":
+        shape = (L, B, 32, KH, Dh)
+        return tokens, lens, None, (torch.randn(shape, generator=g),
+                                    torch.randn(shape, generator=g))
+    tables = torch.tensor([[3, 5, 7], [4, -1, -1], [3, 6, -1]],
+                          dtype=torch.int32)[:B]
+    shape = (L, 10, 8, KH, Dh)
+    return tokens, lens, tables, (torch.randn(shape, generator=g),
+                                  torch.randn(shape, generator=g))
+
+
+def _run_verify(which, params, cfg, tokens, lens, tables, kv, device):
+    from ray_tpu_torch.models import to_compute
+    from ray_tpu_torch.models.paged_engine import _paged_verify
+    from ray_tpu_torch.models.speculative import _batched_verify
+
+    p = to_compute(params, cfg, device)
+    k, v = (t.clone().to(device) for t in kv)
+    with torch.inference_mode():
+        if which == "contiguous":
+            out = _batched_verify(p, tokens.to(device), lens.to(device), k,
+                                  v, cfg)
+        else:
+            out = _paged_verify(p, tokens.to(device), lens.to(device),
+                                tables.to(device), k, v, cfg)
+    return out.cpu(), k.cpu(), v.cpu()
+
+
+@pytest.mark.parametrize("which,lengths", [
+    ("contiguous", [5, 17, 0]), ("paged", [22, 10, 9])])
+def test_verify_on_card_matches_cpu_f32(dev, which, lengths):
+    """The verify forward (K1 on the card, plain masked attention) against
+    the same forward on the CPU, f32: logits and the written cache or pool
+    within atol 1e-4, rtol 1e-4 (summation order)."""
+    cfg, params = _spec_setup(0)
+    args = _verify_inputs(which, cfg, lengths, seed=1)
+    got = _run_verify(which, params, cfg, *args, device=dev)
+    want = _run_verify(which, params, cfg, *args, device="cpu")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_verify_write_past_the_cache_is_clamped_on_card(dev):
+    """A chunk that would run past S_max writes at S_max - S, as JAX's
+    dynamic_update_slice clamps it, and does not fault the card: logits
+    and cache equal the CPU's, and the rows before the clamp are left
+    as they were."""
+    cfg, params = _spec_setup(0)
+    tokens, lens, _, kv = _verify_inputs("contiguous", cfg, [30, 31, 0],
+                                         seed=2)
+    got = _run_verify("contiguous", params, cfg, tokens, lens, None, kv,
+                      device=dev)
+    torch.cuda.synchronize()
+    want = _run_verify("contiguous", params, cfg, tokens, lens, None, kv,
+                       device="cpu")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got[1][:, :2, :28], kv[0][:, :2, :28])
+
+
+def _count_ticks(eng):
+    """Wrap the engine's verify and decode passes: the launches of each
+    counted kernel in every call, by the pass that made them."""
+    from ray_tpu_torch.ops import paged_attention
+
+    counters = {"rms_norm": (fused.rms_norm, "launches"),
+                "add_rms_norm": (fused.add_rms_norm, "launches"),
+                "decode_attention": (attention.decode_attention,
+                                     "launches"),
+                "paged_decode_attention": (
+                    paged_attention.paged_decode_attention, "launches")}
+    seen = {"verify": [], "decode": []}
+
+    def wrap(kind, fn):
+        def run(*a):
+            before = {n: getattr(f, at) for n, (f, at) in counters.items()}
+            out = fn(*a)
+            seen[kind].append({n: getattr(f, at) - before[n]
+                               for n, (f, at) in counters.items()})
+            return out
+        return run
+
+    eng._verify_all = wrap("verify", eng._verify_all)
+    eng._decode_all = wrap("decode", eng._decode_all)
+    return seen
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous",
+                                                      "paged"])
+def test_speculative_ticks_launch_the_path_kernels(dev, paged):
+    """With speculation on, every verify tick launches K1 2L+1 times (1
+    plain, 2L residual) and no decode kernel; the contiguous engine never
+    runs its decode pass; a paged tick with no drafts launches K1 2L+1
+    times and K7 L times. Greedy outputs equal the same engine's on the
+    CPU."""
+    from ray_tpu_torch.models.engine import GenerationEngine
+    from ray_tpu_torch.models.paged_engine import PagedGenerationEngine
+
+    cfg, params = _spec_setup(0)
+    L = cfg.n_layers
+    cls, kw = ((PagedGenerationEngine, dict(page_size=8)) if paged
+               else (GenerationEngine, {}))
+    # The first request runs alone for one tick, on which nothing can
+    # draft: its trailing bigram (37, first token) has no earlier match.
+    prompts = [[4, 8, 15, 16, 23, 42, 37], [5, 6, 7, 5, 6, 7, 5, 6],
+               [4, 8, 15, 16, 23, 42, 37], [9, 9, 9, 9]]
+    news = [2, 12, 12, 12]
+    outs = []
+    for device in ("cpu", "cuda"):
+        eng = cls(params, cfg, max_slots=3, speculative_k=3, device=device,
+                  **kw)
+        seen = _count_ticks(eng)
+        res = {}
+        for batch in ((0,), (1, 2, 3)):
+            ids = {eng.submit(prompts[j], news[j]): j for j in batch}
+            res.update({ids[r]: out for r, out in
+                        eng.run_until_done().items()})
+        outs.append([res[j] for j in range(len(prompts))])
+    assert outs[0] == outs[1]
+    verify = dict(rms_norm=1, add_rms_norm=2 * L, decode_attention=0,
+                  paged_decode_attention=0)
+    assert seen["verify"] and all(c == verify for c in seen["verify"])
+    if paged:
+        decode = dict(verify, paged_decode_attention=L)
+        assert seen["decode"] and all(c == decode for c in seen["decode"])
+    else:
+        assert seen["decode"] == []

@@ -202,19 +202,13 @@ def test_stop_sequences_and_cancel(model):
 def test_unported_features_raise_naming_the_slice(model):
     _, _, tcfg, tparams = model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.GenerationEngine(tparams, tcfg, speculative_k=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.GenerationEngine(tparams, tcfg, mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedGenerationEngine(tparams, tcfg, speculative_k=2, device=CPU)
+        PagedGenerationEngine(tparams, tcfg, mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMBackend(tparams, tcfg, paged=True, tp=2, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMBackend(tparams, tcfg, tp=2, device=CPU)
-    for paged in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LMBackend(tparams, tcfg, paged=paged, speculative_k=2,
-                      speculative_ngram=3, device=CPU)
 
 
 # ------------------------------------------------------------ LMBackend
