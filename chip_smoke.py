@@ -79,7 +79,23 @@ it fails:
    on phase 3c's traffic (a), speculation on against off for each engine:
    decode tokens/s, tokens per tick, the acceptance rate, and one full
    verify tick's device time and wall beside the plain tick's at the same
-   lengths.
+   lengths;
+8. the placement passes (ray_tpu_torch.scheduler, torch ops: no kernel of
+   their own) at bench.py's scheduler workloads on 256 nodes: (a) the
+   100k-task random DAG, whose rounds (57) and placement sha256 at
+   prng_key(0) must be the JAX package's (SCHED_A_*), (b) the 10k fan-out,
+   (c) the 50k chain through schedule_dag_collapsed, (d) the 64k-map,
+   256-reduce DAG with locality hints, each placement and round count
+   equal to the port's scalar reference (reference.py) on the host; (e) 50
+   BatchScheduler ticks of 1,024 tasks, each equal to the reference; S1's
+   draws at 8,192 tasks against numpy, and the gang, pending-reason and
+   locality passes once each at control-plane sizes against the
+   reference. Each prints tasks/s (the least wall of 5 runs after a
+   warm-up), rounds, wall a round, host syncs and device launches a round
+   (torch's sync debug mode, torch.profiler), device time (rounds replayed
+   behind a sleep and timed by CUDA events, and the profiler's kernel sum)
+   and the card's busy share; (a) also its ten costliest kernels, (e) the
+   tick's p50 and p99.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -87,6 +103,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import re
@@ -106,6 +123,11 @@ from ray_tpu_torch.models import engine as engine_mod
 from ray_tpu_torch.models import paged_engine as paged_mod
 from ray_tpu_torch.models import speculative
 from ray_tpu_torch.ops import attention, fused, paged_attention
+from ray_tpu_torch.scheduler import kernel as sched
+from ray_tpu_torch.scheduler import reference as sched_ref
+from ray_tpu_torch.scheduler.dag import (
+    collapse_chains, fanout_dag, random_dag, uniform_cluster,
+)
 from ray_tpu_torch.serve import LMBackend, ServeRequest
 
 # Flagship config (scripts/model_bench.py's decode benchmark) and engine.
@@ -128,6 +150,11 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 EPS = 1e-5
+# Workload (a) of phase 8 (bench.py's 100k-task random DAG on 256 nodes) at
+# prng_key(0): its rounds and the sha256 of its int32 placement bytes, as
+# the JAX package computes them (tests/test_torch_scheduler.py checks both).
+SCHED_A_ROUNDS = 57
+SCHED_A_SHA256 = "857b62605f345e68b0f66dddc2563fc22bd68c56230cc39b899a10a323d4422e"
 
 
 def log(msg: str) -> None:
@@ -2172,6 +2199,321 @@ def train_breakdown(card: str, step_ms: float) -> None:
         log(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {name[:80]}")
 
 
+# ------------------------------------------- phase 8: the placement passes
+
+
+SCHED_NODES, SCHED_RUNS = 256, 5
+SCHED_TICKS, SCHED_BATCH = 50, 1024
+# Cycles of the sleep that holds the stream while the host queues one
+# round (~400 launches, a few ms) of a replayed placement run.
+SCHED_SLEEP = 40_000_000
+
+
+def sched_workloads() -> dict:
+    """bench.py's scheduler workloads (a)-(d) (bench.py:175-258), as numpy:
+    {tag: (title, demand, parents, avail, locality, chunk)}."""
+    N = SCHED_NODES
+    a_demand, a_parents = random_dag(100_000, max_parents=3,
+                                     parent_window=100_000, seed=0)
+    b_demand, b_parents = fanout_dag(10_000, cpu=1.0)
+    c_demand = np.full((50_000, 1), 1000, np.int32)
+    c_parents = (np.arange(50_000, dtype=np.int32) - 1).reshape(-1, 1)
+    n_map, n_reduce = 64_000, 256
+    fan_in = n_map // n_reduce
+    d_demand = np.full((n_map + n_reduce, 1), 1000, np.int32)
+    d_parents = np.full((n_map + n_reduce, fan_in), -1, np.int32)
+    d_parents[n_map:] = np.arange(n_map, dtype=np.int32).reshape(n_reduce,
+                                                                 fan_in)
+    d_locality = np.full(n_map + n_reduce, -1, np.int32)
+    d_locality[n_map:] = np.arange(n_reduce) % N
+    cluster = uniform_cluster(N, cpu=16.0)
+    return {
+        "a": ("random DAG", a_demand, a_parents, cluster, None, 8192),
+        "b": ("10k no-op fan-out", b_demand, b_parents, cluster, None, 8192),
+        "c": ("50k linear chain, schedule_dag_collapsed", c_demand,
+              c_parents, cluster[:, :1], None, 64),
+        "d": ("64k map + 256 reduce with locality", d_demand, d_parents,
+              uniform_cluster(N, cpu=300.0)[:, :1], d_locality, 8192),
+    }
+
+
+def count_syncs(fn) -> int:
+    """How often fn() makes the host wait for the card, as torch's sync
+    debug mode reports it (one warning per synchronizing call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def profile_launches(fn, top: int = 0) -> tuple:
+    """(device events, their summed device ms) of one fn() under
+    torch.profiler: kernels, copies and fills; with ``top``, also logs the
+    ``top`` kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in rows) / 1e3
+    for e in rows[:top]:
+        ms = e.device_time_total / 1e3
+        log(f"    {ms:9.3f} ms {ms / max(total, 1e-9):6.1%} x{e.count:<6d} "
+            f"{e.key[:90]}")
+    return sum(e.count for e in rows), total
+
+
+def best_wall(fn) -> tuple:
+    """(least, all) host walls of SCHED_RUNS calls after a warm-up; fn ends
+    by reading its result on the host, which waits for the card."""
+    fn()
+    walls = []
+    for _ in range(SCHED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), walls
+
+
+def replay_device_ms(state) -> tuple:
+    """Device ms of one schedule_dag run, replayed a round at a time: each
+    round's work (its ready mask, the loop's condition and the body)
+    queued behind a sleep and timed by CUDA events, the rounds summed.
+    Returns (ms, rounds, whether the host was slower than the sleep)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total, r, host_bound = 0.0, 0, False
+    while True:
+        torch.cuda._sleep(SCHED_SLEEP)
+        start.record()
+        ready = state.ready()
+        more = ready.any()
+        state.step(r, ready)      # with nothing ready it places nothing
+        host_bound |= start.query()
+        end.record()
+        end.synchronize()
+        if not bool(more):
+            return total, r, host_bound
+        total += start.elapsed_time(end)
+        r += 1
+
+
+def sched_line(tag, title, T, rounds, wall, walls, syncs, launches,
+               dev_ms, prof_ms, card, extra="") -> None:
+    log(f"  ({tag}) {title}, {T} tasks: {rounds} rounds{extra}; "
+        f"{T / wall:.1f} tasks/s (least wall {wall:.6f} s of "
+        f"{[round(w, 6) for w in walls]}); {1e3 * wall / rounds:.3f} ms a "
+        f"round; {syncs} host syncs ({syncs / rounds:.2f} a round); "
+        f"{launches} device launches ({launches / rounds:.1f} a round); "
+        f"device {dev_ms:.3f} ms (CUDA events, rounds replayed), "
+        f"{prof_ms:.3f} ms (torch.profiler kernel sum); busy "
+        f"{dev_ms / (1e3 * wall):.1%} of the least wall [{card}]")
+
+
+def sched_path(card: str) -> None:
+    """Phase 8: the port's placement passes on the card at bench.py's
+    sizes, each result held to the port's scalar reference on the host."""
+    log(f"phase 8: the placement passes (torch ops) at bench.py's sizes, "
+        f"{SCHED_NODES} nodes [{card}]")
+    dev = torch.device("cuda")
+    key = sched.prng_key(0)
+    t_phase = time.perf_counter()
+    for tag, (title, demand, parents, avail, loc, chunk) in \
+            sched_workloads().items():
+        T = demand.shape[0]
+        if tag == "c":
+            avail_t = torch.from_numpy(avail).to(dev)
+
+            def run():
+                return sched.schedule_dag_collapsed(demand, parents,
+                                                    avail_t, key,
+                                                    chunk=chunk)
+            got, rounds = run()
+            r_demand, r_parents, _, expand = collapse_chains(demand,
+                                                             parents)
+            want, want_rounds = sched_ref.schedule_dag_reference(
+                r_demand, r_parents, avail, key, chunk=chunk)
+            want = want[expand]
+            inputs = (r_demand, r_parents, avail, None)
+        else:
+            inputs = tuple(None if x is None else torch.from_numpy(x).to(dev)
+                           for x in (demand, parents, avail, loc))
+
+            def run():
+                p, r = sched.schedule_dag(*inputs[:3], key,
+                                          locality=inputs[3], chunk=chunk)
+                return p.cpu().numpy(), int(r)
+            got, rounds = run()
+            t0 = time.perf_counter()
+            want, want_rounds = sched_ref.schedule_dag_reference(
+                demand, parents, avail, key, locality=loc, chunk=chunk)
+            log(f"  ({tag}) scalar reference on the host: {want_rounds} "
+                f"rounds in {time.perf_counter() - t0:.1f} s")
+        if rounds != want_rounds or not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)
+            raise AssertionError(
+                f"({tag}) card placement differs from the reference: "
+                f"rounds {rounds} vs {want_rounds}, {bad.size} tasks, first "
+                f"{bad[:5].tolist()}")
+        placed = int((got >= 0).sum())
+        extra = f", {placed} placed, equal to the reference"
+        if tag == "a":
+            digest = hashlib.sha256(got.astype(np.int32).tobytes()
+                                    ).hexdigest()
+            if (rounds, placed, digest) != (SCHED_A_ROUNDS, T,
+                                            SCHED_A_SHA256):
+                raise AssertionError(
+                    f"(a) {rounds} rounds, {placed} placed, sha256 {digest}"
+                    f"; want {SCHED_A_ROUNDS}, {T}, {SCHED_A_SHA256}")
+            extra += f", sha256 {digest} as JAX's"
+        if tag == "d":
+            hit = float((got[64_000:] == loc[64_000:]).mean())
+            extra += f", locality hit rate {hit:.4f}"
+        wall, walls = best_wall(run)
+        syncs = count_syncs(run)
+        launches, prof_ms = profile_launches(run, top=10 if tag == "a" else 0)
+        state = sched._DagRounds(
+            *(x if x is None or isinstance(x, torch.Tensor)
+              else torch.from_numpy(x).to(dev) for x in inputs[:3]), key,
+            inputs[3] if isinstance(inputs[3], torch.Tensor) else None,
+            None, chunk, dev)
+        dev_ms, replayed, host_bound = replay_device_ms(state)
+        if replayed != rounds:
+            raise AssertionError(f"({tag}) replay took {replayed} rounds")
+        if tag != "c" and not np.array_equal(
+                state.placement[:T].cpu().numpy(), got):
+            raise AssertionError(f"({tag}) replayed placement differs")
+        if host_bound:
+            log(f"  ({tag}) the sleep ended before the host queued a round:"
+                " its device time is an upper bound")
+        sched_line(tag, title, T, rounds, wall, walls, syncs, launches,
+                   dev_ms, prof_ms, card, extra)
+    sched_dispatch(card, key)
+    sched_control_plane(card, key)
+    log(f"  phase 8 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def sched_dispatch(card: str, key) -> None:
+    """(e) bench.py's dispatch latency: 50 ticks of a 1,024-task batch on
+    256 nodes through BatchScheduler, each tick held to the reference."""
+    avail = uniform_cluster(SCHED_NODES, cpu=16.0)
+    demand = np.full((SCHED_BATCH, avail.shape[1]), 1000, np.int32)
+    bs = sched.BatchScheduler(avail, seed=0, chunk=SCHED_BATCH)
+    bs.place(demand)                                  # tick 0, warm-up
+    lat, outs = [], []
+    for _ in range(SCHED_TICKS):
+        t0 = time.perf_counter()
+        outs.append(bs.place(demand))
+        lat.append(time.perf_counter() - t0)
+    no_parents = np.full((SCHED_BATCH, 1), -1, np.int32)
+    for tick, got in enumerate(outs, start=1):
+        want, _ = sched_ref.schedule_dag_reference(
+            demand, no_parents, avail, sched.fold_in(key, tick),
+            chunk=SCHED_BATCH, max_rounds=1)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"(e) tick {tick} differs from the "
+                                 "reference")
+    lat.sort()
+    syncs = count_syncs(lambda: bs.place(demand))
+    launches, prof_ms = profile_launches(lambda: bs.place(demand))
+    dev = torch.device("cuda")
+    demand_t = torch.from_numpy(demand).to(dev)
+    parents_t = torch.from_numpy(no_parents).to(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SCHED_SLEEP)
+    start.record()
+    st = sched._DagRounds(demand_t, parents_t, bs.avail,
+                          sched.fold_in(key, 1), None, None, SCHED_BATCH,
+                          dev)
+    st.step(0, st.ready())
+    end.record()
+    end.synchronize()
+    dev_ms = start.elapsed_time(end)
+    p50, p99 = lat[len(lat) // 2], lat[-1]
+    log(f"  (e) dispatch, {SCHED_TICKS} ticks of {SCHED_BATCH} tasks on "
+        f"{SCHED_NODES} nodes, each equal to the reference: p50 "
+        f"{1e3 * p50:.3f} ms, p99 (max of {SCHED_TICKS}) {1e3 * p99:.3f} "
+        f"ms, {1e6 * p50 / SCHED_BATCH:.3f} us a task at p50; a tick: "
+        f"{syncs} host syncs, {launches} device launches, device "
+        f"{dev_ms:.3f} ms (CUDA events), {prof_ms:.3f} ms (torch.profiler "
+        f"kernel sum); busy {dev_ms / (1e3 * p50):.1%} of the p50 [{card}]")
+
+
+def sched_control_plane(card: str, key) -> None:
+    """S1 at a chunk's 8,192 tasks, and S3-S5 once each at control-plane
+    sizes, each held to the reference."""
+    dev = torch.device("cuda")
+    idx = torch.arange(8192, device=dev)
+    bits = sched.task_bits(key, 3, idx)
+    if not np.array_equal(bits.cpu().numpy(),
+                          sched.task_bits_host(key, 3, np.arange(8192))):
+        raise AssertionError("S1 task_bits on the card differ from numpy")
+    launches, prof_ms = profile_launches(lambda: sched.task_bits(key, 3,
+                                                                 idx))
+    dev_ms = device_ms("task_bits", lambda: sched.task_bits(key, 3, idx),
+                       [()], 1, sleep_cycles=SCHED_SLEEP)
+    log(f"  S1 task_bits, 8192 tasks (one round's chunk): equal to numpy; "
+        f"{launches} device launches, device {dev_ms:.3f} ms (CUDA "
+        f"events), {prof_ms:.3f} ms (torch.profiler kernel sum) [{card}]")
+    rng = np.random.default_rng(SEED)
+    sizes = rng.integers(1, 9, size=230)
+    group = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    gangs = (rng.integers(0, 4000, size=(len(group), 4)).astype(np.int32),
+             group, (np.arange(len(sizes)) % 4).astype(np.int32),
+             rng.integers(2000, 16000, size=(SCHED_NODES, 4)
+                          ).astype(np.int32), key)
+    T = 8192
+    pending = (rng.integers(0, 20000, size=(T, 4)).astype(np.int32),
+               rng.integers(-2, SCHED_NODES, size=T).astype(np.int32),
+               gangs[3], rng.random(T) < 0.2, rng.random(T) < 0.2,
+               rng.random(T) < 0.2)
+    nbytes = rng.integers(0, 1 << 31, size=(T, SCHED_NODES))
+    big = rng.random(nbytes.shape) < 0.25
+    nbytes[big] = rng.integers(1 << 31, 1 << 45, size=int(big.sum()))
+    nbytes[rng.random(nbytes.shape) < 0.5] = 0
+    nbytes[::97] = 0
+    passes = {
+        "S3 admit_gangs_host": (
+            f"{len(group)} bundles in {len(sizes)} groups, all 4 "
+            f"strategies", lambda: sched.admit_gangs_host(*gangs),
+            lambda: sched_ref.admit_gangs_reference(*gangs)),
+        "S4 classify_pending_host": (
+            f"{T} tasks", lambda: sched.classify_pending_host(*pending),
+            lambda: sched_ref.classify_pending_reference(*pending)),
+        "S5 score_locality_host": (
+            f"[{T}, {SCHED_NODES}] int64 bytes, {int(big.sum())} above "
+            "2^31", lambda: sched.score_locality_host(nbytes),
+            lambda: sched_ref.score_locality_reference(nbytes)),
+    }
+    for name, (what, fn, ref) in passes.items():
+        got = fn()
+        if not np.array_equal(got, ref()):
+            raise AssertionError(f"{name} differs from the reference")
+        wall, _ = best_wall(fn)
+        syncs = count_syncs(fn)
+        launches, prof_ms = profile_launches(fn)
+        log(f"  {name}, {what}: equal to the reference; least wall "
+            f"{1e3 * wall:.3f} ms of {SCHED_RUNS}; {syncs} host syncs, "
+            f"{launches} device launches, {prof_ms:.3f} ms device "
+            f"(torch.profiler kernel sum) [{card}]")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2217,6 +2559,7 @@ def main() -> int:
     spec_timings(spec, card)
     times.update(train_timings(card))
     train_breakdown(card, train["step_ms"])
+    sched_path(card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -17,7 +17,12 @@ and flash-decode kernels. Slice 2 is the train step:
 cross-entropy and flash-attention forward/backward kernels. Slice 3 is the
 paged serving path: ``serve.LMBackend(paged=True)`` ->
 ``models.paged_engine.PagedGenerationEngine`` (page pool, prefix caching)
--> the RMSNorm and paged flash-decode kernels.
+-> the RMSNorm and paged flash-decode kernels. The substrate
+(``exceptions``, ``object_ref``, ``_private``'s ids, resources, config,
+task specs and serialization) and the batch placement passes
+(``scheduler``: ``schedule_dag``, ``BatchScheduler``, the gang,
+pending-reason and locality passes) are torch ops on the card, equal bit
+for bit to the JAX package's.
 """
 
 from __future__ import annotations

@@ -239,7 +239,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors go through the hand-written flash-decode kernel
     (``decode_attention.launches`` counts its launches); CPU tensors
     through the plain version. It has no backward: on the card it raises
-    when grad mode is on and an input requires grad."""
+    when grad mode is on and an input requires grad.
+
+    The JAX package's ``block_k`` and ``truncate_dma`` are Pallas tiling
+    knobs that no caller passes; the kernel here plans its own splits, so
+    the port takes neither."""
     if q.device.type == "cpu":
         return _decode_attention_ref(q, k, v, lengths)
     return _decode_attention_cuda(q, k, v, lengths)
@@ -552,5 +556,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention, q [B, T, H, D] against k/v [B, S, KH, D] ->
     [B, T, H, D], differentiable in q, k and v. On the card the forward is
     kernel K3 and the backward kernels K4 (dq) and K5 (dk, dv); on the CPU
-    their plain versions. D in (64, 128), any T, S and G = H // KH."""
+    their plain versions. D in (64, 128), any T, S and G = H // KH.
+
+    The JAX package's ``block_q`` and ``block_k`` are Pallas tiling knobs
+    that no caller passes; the kernels here choose their own tiles, so the
+    port takes neither."""
     return _FlashAttention.apply(q, k, v, causal)

@@ -743,3 +743,147 @@ def test_speculative_ticks_launch_the_path_kernels(dev, paged):
         assert seen["decode"] and all(c == decode for c in seen["decode"])
     else:
         assert seen["decode"] == []
+
+
+# ------------------------------------------------ scheduler passes, substrate
+
+
+def _sched_dag(seed, T=3000, N=24):
+    from ray_tpu_torch.scheduler.dag import random_dag, uniform_cluster
+
+    demand, parents = random_dag(T, num_classes=6, parent_window=300,
+                                 seed=seed)
+    rng = np.random.default_rng(seed)
+    locality = rng.integers(-1, N, size=T).astype(np.int32)
+    mask = rng.random(N) < 0.8
+    mask[0] = True
+    return demand, parents, uniform_cluster(N, cpu=8), locality, mask
+
+
+@pytest.mark.parametrize("case", ["plain", "locality_mask", "one_round",
+                                  "tensors_on_card"])
+def test_schedule_dag_on_card_equals_cpu(dev, case):
+    """S1 and S2: placements and rounds on the card equal the CPU's, bit
+    for bit, and come back on the card."""
+    from ray_tpu_torch.scheduler import kernel as sk
+
+    demand, parents, avail, locality, mask = _sched_dag(3)
+    kw = dict(chunk=512)
+    if case in ("locality_mask", "one_round"):
+        kw.update(locality=locality, node_mask=mask)
+    if case == "one_round":
+        kw.update(max_rounds=1)
+    want, want_r = sk.schedule_dag(demand, parents, avail, sk.prng_key(3),
+                                   device="cpu", **kw)
+    if case == "tensors_on_card":
+        demand, parents, avail = (torch.from_numpy(a).to(dev)
+                                  for a in (demand, parents, avail))
+        got, got_r = sk.schedule_dag(demand, parents, avail,
+                                     sk.prng_key(3), **kw)
+    else:
+        got, got_r = sk.schedule_dag(demand, parents, avail,
+                                     sk.prng_key(3), **kw)
+    assert got.device.type == got_r.device.type == "cuda"
+    assert torch.equal(got.cpu(), want) and int(got_r) == int(want_r)
+
+
+def test_schedule_dag_round_body_never_syncs(dev):
+    """Inside a round nothing waits for the card: the only sync is the
+    loop's condition, outside the body."""
+    from ray_tpu_torch.scheduler import kernel as sk
+
+    demand, parents, avail, locality, mask = _sched_dag(5)
+    st = sk._DagRounds(demand, parents, avail, sk.prng_key(5), locality,
+                       mask, 512, torch.device("cuda"))
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r in range(3):
+            st.step(r, st.ready())
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def test_scheduler_passes_refuse_to_move_card_inputs_to_the_cpu(dev):
+    from ray_tpu_torch.scheduler import kernel as sk
+
+    demand, parents, avail, _, _ = _sched_dag(1, T=50)
+    with pytest.raises(ValueError, match="not moved"):
+        sk.schedule_dag(torch.from_numpy(demand).to(dev), parents, avail,
+                        sk.prng_key(0), device="cpu")
+    with pytest.raises(ValueError, match="not moved"):
+        sk.BatchScheduler(torch.from_numpy(avail).to(dev), device="cpu")
+
+
+def test_gang_reason_locality_passes_on_card_equal_cpu(dev):
+    """S3-S5 at control-plane sizes: the card's codes equal the CPU's."""
+    from ray_tpu_torch.scheduler import kernel as sk
+
+    rng = np.random.default_rng(4)
+    sizes = rng.integers(1, 9, size=200)
+    group = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    gd = rng.integers(0, 4000, size=(len(group), 4)).astype(np.int32)
+    strategy = (np.arange(len(sizes)) % 4).astype(np.int32)
+    avail = rng.integers(2000, 16000, size=(256, 4)).astype(np.int32)
+    for r in range(3):
+        args = (gd, group, strategy, avail, sk.prng_key(7))
+        np.testing.assert_array_equal(
+            sk.admit_gangs_host(*args, round_idx=r),
+            sk.admit_gangs_host(*args, round_idx=r, device="cpu"))
+    T = 5000
+    pend = (rng.integers(0, 20000, size=(T, 4)).astype(np.int32),
+            rng.integers(-2, 256, size=T).astype(np.int32), avail,
+            rng.random(T) < 0.2, rng.random(T) < 0.2, rng.random(T) < 0.2)
+    np.testing.assert_array_equal(sk.classify_pending_host(*pend),
+                                  sk.classify_pending_host(*pend,
+                                                           device="cpu"))
+    b = rng.integers(0, 1 << 40, size=(4096, 256))
+    b[rng.random(b.shape) < 0.6] = 0
+    b[::50] = 0
+    np.testing.assert_array_equal(sk.score_locality_host(b),
+                                  sk.score_locality_host(b, device="cpu"))
+
+
+def test_collapsed_and_batch_scheduler_on_card_equal_cpu(dev):
+    from ray_tpu_torch.scheduler import kernel as sk
+    from ray_tpu_torch.scheduler.dag import uniform_cluster
+
+    demand, parents, avail, locality, _ = _sched_dag(8)
+    got = sk.schedule_dag_collapsed(demand, parents, avail, sk.prng_key(8),
+                                    locality=locality, chunk=256)
+    want = sk.schedule_dag_collapsed(demand, parents, avail, sk.prng_key(8),
+                                     locality=locality, chunk=256,
+                                     device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    card = sk.BatchScheduler(uniform_cluster(64), seed=2, chunk=1024)
+    cpu = sk.BatchScheduler(uniform_cluster(64), seed=2, chunk=1024,
+                            device="cpu")
+    assert card.avail.device.type == "cuda"
+    rng = np.random.default_rng(2)
+    for tick in range(6):
+        d = np.zeros((1024, 4), np.int32)
+        d[:, 0] = rng.choice([500, 1000, 4000], size=1024)
+        np.testing.assert_array_equal(card.place(d), cpu.place(d))
+        if tick == 2:
+            for s in (card, cpu):
+                s.update_node(5, np.array([0, 0, 0, 0], np.int32))
+
+
+def test_cuda_tensors_roundtrip_through_serialization(dev):
+    pytest.importorskip("cloudpickle")
+    from ray_tpu_torch._private.serialization import (
+        SerializedObject, get_context)
+
+    g = _gen(0)
+    f32 = torch.randn(33, 17, generator=g, device=dev)
+    value = {"f32": f32, "bf16": [f32.bfloat16()[:, :5]],
+             "i64": torch.arange(9, device=dev), "cpu": torch.ones(3)}
+    ctx = get_context()
+    out = ctx.deserialize(SerializedObject.from_bytes(
+        ctx.serialize(value).to_bytes()))
+    for got, want in ((out["f32"], f32), (out["bf16"][0], value["bf16"][0]),
+                      (out["i64"], value["i64"]), (out["cpu"], value["cpu"])):
+        assert got.device.type == want.device.type
+        assert got.dtype == want.dtype and torch.equal(got, want)

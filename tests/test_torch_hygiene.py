@@ -1,6 +1,7 @@
 """Boundaries of the port: ray_tpu_torch, chip_smoke.py and flash_variants.py
 import no JAX and nothing of ray_tpu; entry points never run on the CPU
-unless asked; the CUDA wrappers never fall back to their plain versions."""
+unless asked; the CUDA wrappers never fall back to their plain versions;
+``ray_tpu_torch.ops`` exports what ``ray_tpu.ops`` does."""
 
 import ast
 import os
@@ -13,10 +14,13 @@ import pytest
 import torch
 
 import ray_tpu_torch
+import ray_tpu_torch.ops
 from ray_tpu_torch._kernels import build
 from ray_tpu_torch.models import TransformerConfig, init_params
 from ray_tpu_torch.models import engine, generate, paged_engine, transformer
 from ray_tpu_torch.ops import attention, fused, paged_attention
+from ray_tpu_torch.scheduler import kernel as sched
+from ray_tpu_torch.scheduler.dag import random_dag, uniform_cluster
 from ray_tpu_torch.serve import LMBackend
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -89,12 +93,60 @@ _ENTRY_POINTS = {
 }
 
 
+def _dag():
+    demand, parents = random_dag(40, seed=1)
+    return demand, parents, uniform_cluster(3)
+
+
+def _gangs():
+    return (np.full((4, 2), 100, np.int32), np.array([0, 0, 1, 1], np.int32),
+            np.array([0, 3], np.int32), np.full((3, 2), 1000, np.int32),
+            sched.prng_key(0))
+
+
+_PENDING = (np.ones((3, 2), np.int32), np.array([-1, 0, -1], np.int32),
+            np.full((2, 2), 5, np.int32), np.zeros(3, bool),
+            np.array([0, 0, 1], bool), np.zeros(3, bool))
+
+# The scheduler's entry points, each called with its ``device`` keyword.
+_SCHED_ENTRY_POINTS = {
+    "schedule_dag": lambda **kw: sched.schedule_dag(
+        *_dag(), sched.prng_key(0), chunk=16, **kw)[0],
+    "schedule_dag_collapsed": lambda **kw: sched.schedule_dag_collapsed(
+        *_dag(), sched.prng_key(0), chunk=16, **kw)[0],
+    "BatchScheduler": lambda **kw: sched.BatchScheduler(
+        uniform_cluster(3), chunk=16, **kw).place(_dag()[0]),
+    "admit_gangs_host": lambda **kw: sched.admit_gangs_host(*_gangs(), **kw),
+    "classify_pending_host": lambda **kw: sched.classify_pending_host(
+        *_PENDING, **kw),
+    "score_locality_host": lambda **kw: sched.score_locality_host(
+        np.array([[0, 5, 5], [0, 0, 0]], np.int64), **kw),
+}
+_ENTRY_POINTS.update(_SCHED_ENTRY_POINTS)
+
+
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
 def test_entry_points_without_device_raise_when_cuda_is_absent(
         name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_SCHED_ENTRY_POINTS))
+def test_scheduler_entry_points_run_on_the_cpu_when_asked(name,
+                                                          monkeypatch):
+    """Without a card, each scheduler entry point runs when given
+    device="cpu" (and a pass handed CPU tensors stays on the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = _SCHED_ENTRY_POINTS[name](device="cpu")
+    assert out.dtype in (np.int32, torch.int32)
+    assert not isinstance(out, torch.Tensor) or out.device.type == "cpu"
+    demand, parents, avail = _dag()
+    placement, rounds = sched.schedule_dag(
+        torch.from_numpy(demand), torch.from_numpy(parents),
+        torch.from_numpy(avail), sched.prng_key(0), chunk=16)
+    assert placement.device.type == rounds.device.type == "cpu"
 
 
 def test_entry_points_run_on_the_cpu_when_asked():
@@ -336,3 +388,43 @@ def test_train_step_runs_where_the_parameters_lie():
     _, _, loss = train_step(params, opt, {"tokens": np.ones((1, 5),
                                                            np.int64)})
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+# ------------------------------------------------ the ops package's exports
+
+
+def _public(mod):
+    return {n for n in dir(mod) if not n.startswith("_")}
+
+
+def test_ops_package_exports_every_name_of_the_jax_ops_package():
+    """Every public name of ``ray_tpu.ops`` is one of ``ray_tpu_torch.ops``,
+    and the four functions both export agree on the same numpy-seeded f32
+    inputs within 1e-5 (JAX on the CPU takes its XLA path)."""
+    import jax.numpy as jnp
+
+    import ray_tpu.ops as jops
+
+    tops = ray_tpu_torch.ops
+    missing = sorted(_public(jops) - _public(tops))
+    assert not missing, f"ray_tpu_torch.ops lacks {missing}"
+
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((2, 16, 4, 64), dtype=np.float32)
+               for _ in range(3))
+    x = rng.standard_normal((6, 64), dtype=np.float32)
+    w = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    logits = rng.standard_normal((5, 40), dtype=np.float32)
+    labels = rng.integers(0, 40, size=5).astype(np.int32)
+    calls = {
+        "attention_reference": ((q, k, v), {"causal": True}),
+        "flash_attention": ((q, k, v), {"causal": True}),
+        "rms_norm": ((x, w), {}),
+        "softmax_cross_entropy": ((logits, labels), {}),
+    }
+    for name, (args, kw) in calls.items():
+        want = np.asarray(getattr(jops, name)(
+            *(jnp.asarray(a) for a in args), **kw))
+        got = getattr(tops, name)(*(torch.from_numpy(a) for a in args), **kw)
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
