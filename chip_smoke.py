@@ -95,7 +95,26 @@ it fails:
    (torch's sync debug mode, torch.profiler), device time (rounds replayed
    behind a sleep and timed by CUDA events, and the profiler's kernel sum)
    and the card's busy share; (a) also its ten costliest kernels, (e) the
-   tick's p50 and p99.
+   tick's p50 and p99;
+9. the local runtime (ray_tpu_torch.init, tasks, actors, the object store
+   with spill, placement groups): (a) init() counts the card as the GPU
+   resource; (b) a num_gpus=1 actor builds the flagship LMBackend from
+   put() parameters (the driver's tensors by data_ptr, device memory no
+   more than the same backend built directly) and serves phase 3's 12
+   requests in one call: phase 3's tokens, and per tick 17 K1 and 8 K6
+   launches (counters set to 0 before the call and read after: the
+   backend's pump thread is the only thread launching); a seeded sample
+   equal twice; (c) a num_gpus=1 task waits (wait() not ready, a capacity
+   pending reason) while the actor holds the card, and kill() admits it:
+   one K1 launch on a put() tensor, within phase 2's tolerance; (d) an
+   actor in a {GPU: 1, CPU: 1} placement-group bundle runs K1, and the GPU
+   is free again after the group's removal; (e) eight 256 MiB CUDA tensors
+   through a 1 GiB store spill and come back on the card with their bits,
+   with the spill and restore rates; (f) the runtime's own costs: task and
+   actor-call round trips over 1,000 calls, a 10k no-op fan-out, put and
+   get of a 256 MiB CUDA tensor, and the 12-request batch's wall through
+   the actor and directly, in turns; (g) timeline() holds an event for
+   every task and actor call, and shutdown() leaves no runtime thread.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -103,17 +122,21 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
+import ray_tpu_torch as rt
+from ray_tpu_torch import metrics as rt_metrics
 from ray_tpu_torch._kernels import build
 from ray_tpu_torch.models import (
     TransformerConfig, init_params, make_train_step, named_leaves,
@@ -2514,6 +2537,399 @@ def sched_control_plane(card: str, key) -> None:
             f"(torch.profiler kernel sum) [{card}]")
 
 
+# ------------------------------------------ phase 9: the local runtime
+
+
+# Round trips and fan-out of (f); the spill of (e): eight 256 MiB f32
+# tensors into a 1 GiB store.
+RT_CALLS, RT_FANOUT, RT_PUTS = 1000, 10_000, 100
+SPILL_N, SPILL_ELEMS, SPILL_BUDGET = 8, 64 * 2**20, 2**30
+RUNTIME_THREADS = ("task-", "actor-", "pg-", "flight-recorder")
+
+
+class Server:
+    """Phase 9's GPU actor: the flagship LMBackend, built from the
+    parameters the actor got through an ObjectRef and warmed as phase 3's,
+    its engine under a PathProbe."""
+
+    def __init__(self, params, cfg):
+        self.params = params
+        self.backend = LMBackend(params, cfg, max_slots=SLOTS,
+                                 max_seq=MAX_SEQ, device="cuda")
+        self.backend([ServeRequest(([1, 2, 3],), {"max_new_tokens": 4})])
+        self.probe = PathProbe(self.backend.engine)
+
+    def param_ptrs(self) -> list:
+        return [t.data_ptr() for t in named_leaves(self.params).values()]
+
+    def cache_bytes(self) -> int:
+        eng = self.backend.engine
+        return eng.cache_k.nbytes + eng.cache_v.nbytes
+
+    def __ray_shutdown__(self):
+        """kill() frees the engine's cache and workspace: the probe holds
+        the engine too."""
+        self.backend.close()
+        self.probe = None
+
+    def serve(self, prompts, n) -> list:
+        return self.backend([ServeRequest((p,), {"max_new_tokens": n})
+                             for p in prompts])
+
+    def sample(self, prompt, kw) -> list:
+        return self.backend([ServeRequest((prompt,), kw)])[0]
+
+    def probed(self) -> tuple:
+        """(prefills, ticks, launches of each tick) since the last call."""
+        p = self.probe
+        out = len(p.prefills), len(p.ticks), list(p.tick_launches)
+        p.prefills, p.ticks, p.tick_launches = [], [], []
+        return out
+
+
+class K1Worker:
+    """Phase 9's actor in a placement group's GPU bundle."""
+
+    def run(self, x, w):
+        return fused.rms_norm(x, w, EPS)
+
+
+class Echo:
+    def m(self):
+        return None
+
+
+def k1_task(x, w):
+    return x.data_ptr(), fused.rms_norm(x, w, EPS)
+
+
+def noop():
+    return None
+
+
+def direct_backend_growth(params, cfg) -> int:
+    """Bytes of device memory the flagship LMBackend takes when a fresh
+    thread builds and warms it without the runtime (its cache and
+    workspace, the per-thread cuBLAS workspaces included): what the actor,
+    a fresh thread too, may add."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    held = []
+
+    def build_and_warm():
+        backend = LMBackend(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                            device="cuda")
+        backend([ServeRequest(([1, 2, 3],), {"max_new_tokens": 4})])
+        held.append(backend)
+
+    t = threading.Thread(target=build_and_warm, name="direct-backend")
+    t.start()
+    t.join(600)
+    if not held:
+        raise AssertionError("(b) the direct LMBackend did not build")
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - mem0
+    held[0].close()
+    return growth
+
+
+def pct_us(ts: list) -> str:
+    a = np.asarray(ts) * 1e6
+    return f"p50 {np.percentile(a, 50):.1f} us, p99 {np.percentile(a, 99):.1f} us"
+
+
+def wait_until(what: str, cond, timeout: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.005)
+
+
+def spill_counters() -> dict:
+    """The spill directory's byte counters and per-object latency sums
+    (ray_tpu_torch.metrics)."""
+    snap = rt_metrics.collect_all()
+    out = {}
+    for kind in ("spilled", "restored"):
+        vals = snap.get(f"object_store_{kind}_bytes", {"values": {}})
+        out[f"{kind}_bytes"] = sum(vals["values"].values())
+        cells = rt_metrics.histogram_cells(
+            f"object_store_{'spill' if kind == 'spilled' else 'restore'}"
+            f"_latency_ms")
+        out[f"{kind}_ms"] = sum(c["sum"] for c in cells.values())
+        out[f"{kind}_n"] = sum(c["count"] for c in cells.values())
+    return out
+
+
+def runtime_path(params, cfg, main: dict, card: str) -> None:
+    """Phase 9: the local runtime on the card, the flagship LMBackend in a
+    GPU actor, GPU accounting, a placement group, spill of CUDA tensors,
+    the runtime's own costs, timeline() and shutdown()."""
+    log(f"phase 9: the local runtime (ray_tpu_torch.init, tasks, actors, "
+        f"object store, placement groups) on the card [{card}]")
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    n_gpu = torch.cuda.device_count()
+    L, V = cfg.n_layers, cfg.vocab_size
+
+    # (a) init() counts the card.
+    rt.init()
+    total = rt.cluster_resources()
+    if total.get("GPU") != n_gpu:
+        raise AssertionError(f"(a) cluster_resources {total}, "
+                             f"{n_gpu} cards")
+    log(f"  (a) init(): cluster_resources {total}")
+
+    # (b) The flagship in a GPU actor, its parameters through put().
+    direct_growth = direct_backend_growth(params, cfg)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    pref = rt.put(params)
+    if rt.get(pref) is not params:
+        raise AssertionError("(b) get(put(params)) is not the same object")
+    server = rt.remote(num_gpus=1)(Server).remote(pref, cfg)
+    ptrs = rt.get(server.param_ptrs.remote(), timeout=600)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - mem0
+    leaves = named_leaves(params)
+    if ptrs != [t.data_ptr() for t in leaves.values()]:
+        raise AssertionError("(b) the actor's parameters are not the "
+                             "driver's tensors (data_ptr differs)")
+    if growth > direct_growth:
+        raise AssertionError(
+            f"(b) the actor added {growth} bytes of device memory, more "
+            f"than the backend's own cache and workspace ({direct_growth})")
+    param_bytes = sum(t.nbytes for t in leaves.values())
+    log(f"  (b) Server actor (num_gpus=1) built LMBackend from put(params): "
+        f"{len(ptrs)} parameter tensors ({param_bytes / 2**20:.1f} MiB) at "
+        f"the driver's data_ptr; device memory +{growth / 2**20:.1f} MiB, "
+        f"the same backend built directly +{direct_growth / 2**20:.1f} MiB")
+    prompts = serving_prompts(V)
+    want_outs = main["outs"]
+    reset_counts()
+    outs = rt.get(server.serve.remote(prompts, NEW_TOKENS), timeout=600)
+    launches = read_counts()
+    n_pre, n_tick, ticks = rt.get(server.probed.remote())
+    if outs != want_outs:
+        bad = [i for i, (a, b) in enumerate(zip(outs, want_outs)) if a != b]
+        raise AssertionError(f"(b) the actor's tokens differ from phase 3's "
+                             f"in requests {bad}")
+    want = {"rms_norm": n_pre + n_tick,
+            "add_rms_norm": 2 * L * (n_pre + n_tick),
+            "decode_attention": L * n_tick}
+    got = {n: c for n, c in launches.items() if c}
+    if got != want or not n_tick:
+        raise AssertionError(f"(b) launches {got}, expected {want}")
+    per_tick = {"rms_norm": 1, "add_rms_norm": 2 * L, "decode_attention": L}
+    for i, t in enumerate(ticks):
+        if {n: c for n, c in t.items() if c} != per_tick:
+            raise AssertionError(f"(b) tick {i}: launches {t}, expected "
+                                 f"{per_tick}")
+    sample_kw = {"max_new_tokens": 16, "temperature": 0.8, "seed": 42}
+    s1 = rt.get(server.sample.remote(prompts[3], sample_kw))
+    s2 = rt.get(server.sample.remote(prompts[3], sample_kw))
+    if s1 != s2 or len(s1) != 16:
+        raise AssertionError(f"(b) seeded sampling differs: {s1} {s2}")
+    log(f"  (b) 12 greedy requests through the actor: phase 3's tokens, "
+        f"token for token; {n_pre} prefills, {n_tick} ticks, launches "
+        f"{got}, every tick {per_tick}; seeded sample equal twice: "
+        f"{s1[:6]}...")
+
+    # (f), the part that needs the actor: the batch's wall, in turns.
+    walls = {"direct": [], "actor": []}
+    for how in ("direct", "actor", "actor", "direct"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "direct":
+            again = main["backend"]([ServeRequest((p,), {
+                "max_new_tokens": NEW_TOKENS}) for p in prompts])
+        else:
+            again = rt.get(server.serve.remote(prompts, NEW_TOKENS))
+        torch.cuda.synchronize()
+        walls[how].append(time.perf_counter() - t0)
+        if again != want_outs:
+            raise AssertionError(f"(f) {how} batch: tokens differ from "
+                                 f"phase 3's")
+    rt.get(server.probed.remote())
+
+    # (c) While the actor holds the card a GPU task waits; kill admits it.
+    x, w = rms_inputs(64, torch.bfloat16, seed=9)
+    xref = rt.put(x)
+    ref = rt.remote(num_gpus=1)(k1_task).remote(xref, w)
+    ready, rest = rt.wait([ref], timeout=0.5)
+    row = rt.state.tasks(name_contains="k1_task")[0]
+    held = rt.available_resources().get("GPU", 0.0)
+    if ready or rest != [ref] or row["state"] != "PENDING" \
+            or row["pending_reason"] != "waiting-for-capacity":
+        raise AssertionError(f"(c) the GPU task did not wait: ready {ready}, "
+                             f"row {row}")
+    cache_bytes = rt.get(server.cache_bytes.remote())
+    torch.cuda.synchronize()
+    mem_held = torch.cuda.memory_allocated()
+    reset_counts()
+    rt.kill(server)
+    ptr, k1_out = rt.get(ref, timeout=60)
+    counts = {n: c for n, c in read_counts().items() if c}
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = mem_held + k1_out.nbytes - torch.cuda.memory_allocated()
+    if freed < cache_bytes:
+        raise AssertionError(
+            f"(c) kill() freed {freed} bytes of device memory, less than "
+            f"the actor's KV cache ({cache_bytes})")
+    if counts != {"rms_norm": 1}:
+        raise AssertionError(f"(c) launches {counts}, expected one K1")
+    if ptr != x.data_ptr() or k1_out.device.type != "cuda":
+        raise AssertionError("(c) the task's tensor was copied or left the "
+                             "card")
+    err = check_close("(c) the GPU task's rms_norm [64, 1024] bfloat16",
+                      k1_out, fused._rms_norm_ref(x, w, EPS), atol=2e-2,
+                      rtol=2e-2)
+    log(f"  (c) num_gpus=1 task pending while the actor holds the card "
+        f"(wait: not ready; reason {row['pending_reason']}; GPU available "
+        f"{held}); kill() admitted it: one K1 launch, err {err:.3e}; "
+        f"kill() freed {freed / 2**20:.1f} MiB of the actor's "
+        f"+{growth / 2**20:.1f} MiB (its KV cache "
+        f"{cache_bytes / 2**20:.1f} MiB)")
+
+    # (d) A placement group's GPU bundle.
+    pg = rt.placement_group([{"GPU": 1, "CPU": 1}])
+    if not pg.wait(30):
+        raise AssertionError(f"(d) {rt.placement_group_table(pg)}")
+    worker = rt.remote(K1Worker).options(
+        placement_group=pg, placement_group_bundle_index=0, num_gpus=1,
+        num_cpus=1).remote()
+    reset_counts()
+    pg_out = rt.get(worker.run.remote(xref, w), timeout=60)
+    counts = {n: c for n, c in read_counts().items() if c}
+    if counts != {"rms_norm": 1} or not torch.equal(pg_out, k1_out):
+        raise AssertionError(f"(d) launches {counts}, or not (c)'s bits")
+    inside = rt.available_resources()
+    rt.kill(worker)
+    rt.remove_placement_group(pg)
+    wait_until("(d) GPU back after remove_placement_group",
+               lambda: rt.available_resources().get("GPU") == n_gpu)
+    log(f"  (d) actor in a {{GPU: 1, CPU: 1}} bundle: one K1 launch, (c)'s "
+        f"bits; GPU available {inside.get('GPU', 0.0)} while the group "
+        f"lived, {rt.available_resources()['GPU']} after its removal")
+
+    # (f) The runtime's own costs on this host.
+    fn = rt.remote(noop)
+    echo = rt.remote(Echo).remote()
+    rt.get([fn.remote(), echo.m.remote()])
+    task_rtt, actor_rtt = [], []
+    for _ in range(RT_CALLS):
+        t0 = time.perf_counter()
+        rt.get(fn.remote())
+        task_rtt.append(time.perf_counter() - t0)
+    for _ in range(RT_CALLS):
+        t0 = time.perf_counter()
+        rt.get(echo.m.remote())
+        actor_rtt.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rt.get([fn.remote() for _ in range(RT_FANOUT)])
+    fanout_s = time.perf_counter() - t0
+    big = torch.randn(SPILL_ELEMS, generator=cuda_gen(SEED + 9),
+                      device="cuda")
+    put_us, get_us = [], []
+    for _ in range(RT_PUTS):
+        t0 = time.perf_counter()
+        bref = rt.put(big)
+        t1 = time.perf_counter()
+        if rt.get(bref) is not big:
+            raise AssertionError("(f) get(put(t)) is not t")
+        put_us.append(t1 - t0)
+        get_us.append(time.perf_counter() - t1)
+        del bref
+    log(f"  (f) no-op task submit -> get round trip over {RT_CALLS}: "
+        f"{pct_us(task_rtt)}; actor call round trip: {pct_us(actor_rtt)}; "
+        f"{RT_FANOUT} no-op fan-out: {RT_FANOUT / fanout_s:.1f} tasks/s; "
+        f"put of a 256 MiB CUDA tensor {pct_us(put_us)}, get "
+        f"{pct_us(get_us)}; the 12-request batch's wall, direct "
+        f"{[round(1e3 * s, 3) for s in walls['direct']]} ms, through the "
+        f"actor {[round(1e3 * s, 3) for s in walls['actor']]} ms (turns "
+        f"direct, actor, actor, direct) [{card}]")
+
+    # (g) timeline() has an event for every task and actor call.
+    rows = rt.state.tasks(limit=10**6)
+    calls = {r["task_id"] for r in rows if r["kind"] in ("task",
+                                                          "actor_method")}
+    creations = sum(r["kind"] == "actor_creation" for r in rows)
+    if len(calls) < 2 * RT_CALLS + RT_FANOUT:
+        raise AssertionError(f"(g) only {len(calls)} task records")
+
+    def covered():
+        events = rt.timeline()
+        tids = {e["tid"] for e in events if e["cat"] == "task"}
+        return calls <= tids and creations == sum(
+            e["cat"] == "actor_creation" for e in events)
+    wait_until("(g) timeline() covers every task and actor call", covered)
+    log(f"  (g) timeline(): an event for each of {len(calls)} task and "
+        f"actor calls and {creations} actor creations")
+    rt.shutdown()
+
+    # (e) Spill: eight 256 MiB CUDA tensors through a 1 GiB store.
+    rt.init(object_store_memory=SPILL_BUDGET)
+    gen = cuda_gen(SEED + 10)
+    vals = [torch.randn(SPILL_ELEMS, generator=gen, device="cuda")
+            for _ in range(SPILL_N)]
+    torch.cuda.synchronize()
+    c0 = spill_counters()
+    t0 = time.perf_counter()
+    refs = [rt.put(v) for v in vals]
+    put_s = time.perf_counter() - t0
+    c1 = spill_counters()
+    stats = rt.state.object_store_stats()
+    if not stats["spilled_objects"]:
+        raise AssertionError(f"(e) nothing spilled: {stats}")
+    t0 = time.perf_counter()
+    gots = [rt.get(r) for r in refs]   # one at a time: each fits alone
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    c2 = spill_counters()
+    for i, (got, v) in enumerate(zip(gots, vals)):
+        if got.device.type != "cuda" or got.dtype != v.dtype or \
+                not torch.equal(got.view(torch.int32), v.view(torch.int32)):
+            raise AssertionError(f"(e) tensor {i} did not come back on the "
+                                 f"card with its bits")
+    gb = 1e9
+    sp_put = c1["spilled_bytes"] - c0["spilled_bytes"]
+    moved = (c2["spilled_bytes"] - c1["spilled_bytes"]
+             + c2["restored_bytes"] - c1["restored_bytes"])
+    w_ms = c2["spilled_ms"] - c0["spilled_ms"]
+    r_ms = c2["restored_ms"] - c0["restored_ms"]
+    log(f"  (e) {SPILL_N} x 256 MiB CUDA tensors into a 1 GiB store: "
+        f"{stats['spilled_objects']} spilled after the puts, "
+        f"{c2['spilled_n'] - c0['spilled_n']} spills and "
+        f"{c2['restored_n'] - c0['restored_n']} restores in all, every get "
+        f"on the card with its bits; puts {put_s:.3f} s (spill end to end "
+        f"{sp_put / gb / put_s:.3f} GB/s: pickle with the copy off the "
+        f"card, write, fsync), gets {get_s:.3f} s ({moved / gb / get_s:.3f}"
+        f" GB/s restored and spilled: each restore spills another); the "
+        f"spill directory alone writes "
+        f"{(c2['spilled_bytes'] - c0['spilled_bytes']) / gb / (w_ms / 1e3):.3f}"
+        f" GB/s and reads "
+        f"{(c2['restored_bytes'] - c0['restored_bytes']) / gb / (r_ms / 1e3):.3f}"
+        f" GB/s [{card}]")
+    del gots, refs, vals
+    rt.shutdown()
+
+    # (g) shutdown() leaves no thread of the runtime alive.
+    def runtime_threads():
+        return [t.name for t in threading.enumerate()
+                if t not in threads_before and t.name.startswith(
+                    RUNTIME_THREADS + ("lm-engine-pump",))]
+    wait_until(f"(g) runtime threads alive after shutdown(): "
+               f"{runtime_threads()}", lambda: not runtime_threads())
+    others = sorted(t.name for t in threading.enumerate()
+                    if t not in threads_before)
+    log(f"  (g) shutdown() left no runtime thread and no LMBackend pump "
+        f"(threads of this phase "
+        f"still alive: {others})")
+    log(f"  phase 9 in {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2560,6 +2976,7 @@ def main() -> int:
     times.update(train_timings(card))
     train_breakdown(card, train["step_ms"])
     sched_path(card)
+    runtime_path(params, cfg, main, card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -22,7 +22,13 @@ paged serving path: ``serve.LMBackend(paged=True)`` ->
 task specs and serialization) and the batch placement passes
 (``scheduler``: ``schedule_dag``, ``BatchScheduler``, the gang,
 pending-reason and locality passes) are torch ops on the card, equal bit
-for bit to the JAX package's.
+for bit to the JAX package's. The local runtime is the framework itself:
+``init()``, ``@remote`` tasks and actors, ``put``/``get``/``wait``, the
+in-process object store with spill to disk and reference counting,
+placement groups, ``timeline()`` and ``state``, with ``num_gpus`` and the
+``GPU`` resource in place of the JAX package's ``num_tpus`` and ``TPU``.
+Tasks and actors run on threads that share torch's default CUDA stream, so
+a CUDA tensor passes between them in order and without a copy.
 """
 
 from __future__ import annotations
@@ -52,4 +58,95 @@ def default_device(device: Device = None) -> torch.device:
     return dev
 
 
-__all__ = ["__version__", "default_device"]
+from .api import (  # noqa: E402,F401
+    available_resources,
+    cancel,
+    free,
+    cluster_resources,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    nodes,
+    put,
+    shutdown,
+    timeline,
+    wait,
+)
+from .exceptions import (  # noqa: E402,F401
+    ActorDiedError,
+    ActorError,
+    GetTimeoutError,
+    ObjectLostError,
+    PlacementGroupError,
+    RayTpuError,
+    ReplicaUnavailableError,
+    TaskCancelledError,
+    TaskError,
+    TaskPoisonedError,
+    TaskTimeoutError,
+    WorkerCrashedError,
+)
+from .object_ref import ObjectRef  # noqa: E402,F401
+from .placement_group import (  # noqa: E402,F401
+    PlacementGroup,
+    placement_group,
+    placement_group_table,
+    remove_placement_group,
+)
+from .remote_function import remote  # noqa: E402,F401
+from .actor import Checkpointable, exit_actor  # noqa: E402,F401
+from .profiling import profile  # noqa: E402,F401
+from . import state  # noqa: E402,F401
+
+
+def register_custom_serializer(cls, *, serializer, deserializer) -> None:
+    """Install a custom (de)serializer for a type
+    (reference: worker.py:1397 register_custom_serializer)."""
+    from ._private.serialization import get_context
+
+    get_context().register_custom_serializer(cls, serializer, deserializer)
+
+
+__all__ = [
+    "__version__",
+    "default_device",
+    "init",
+    "shutdown",
+    "is_initialized",
+    "remote",
+    "get",
+    "put",
+    "wait",
+    "kill",
+    "cancel",
+    "free",
+    "get_actor",
+    "nodes",
+    "cluster_resources",
+    "available_resources",
+    "timeline",
+    "placement_group",
+    "remove_placement_group",
+    "placement_group_table",
+    "PlacementGroup",
+    "profile",
+    "state",
+    "exit_actor",
+    "Checkpointable",
+    "register_custom_serializer",
+    "ObjectRef",
+    "RayTpuError",
+    "TaskError",
+    "ActorError",
+    "ActorDiedError",
+    "ObjectLostError",
+    "PlacementGroupError",
+    "GetTimeoutError",
+    "TaskCancelledError",
+    "TaskTimeoutError",
+    "TaskPoisonedError",
+    "WorkerCrashedError",
+    "ReplicaUnavailableError",
+]

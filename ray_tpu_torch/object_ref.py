@@ -3,12 +3,7 @@
 Same role as the reference's ``ObjectID``/``ObjectRef`` returned by
 ``f.remote()`` (reference: ``python/ray/includes/object_id.pxi``): a cheap,
 hashable, serializable handle to an immutable object that may not exist yet.
-
-The local runtime (worker, object store, reference counting) is not ported
-yet: it comes with the local runtime slice (A4) of ROADMAP.md. Until then no
-worker is ever connected, so a handle registers with no reference counter,
-as the JAX package's handles do before ``init()``, and waiting on a handle
-raises NotImplementedError.
+Supports ``await`` so asyncio code can consume task results directly.
 """
 
 from __future__ import annotations
@@ -17,17 +12,31 @@ from typing import Optional
 
 from ._private.ids import ObjectID
 
-_NO_RUNTIME = ("waiting on an ObjectRef needs the local runtime, which is "
-               "not ported yet; it comes with the local runtime slice (A4) "
-               "of ROADMAP.md")
-
 
 class ObjectRef:
-    __slots__ = ("id", "_owner")
+    __slots__ = ("id", "_owner", "_counted_core")
 
     def __init__(self, object_id: ObjectID, owner: Optional[bytes] = None):
         self.id = object_id
         self._owner = owner
+        # Register with the owner's reference counter so the object can be
+        # freed when the last handle dies (reference: reference_count.h:33
+        # AddLocalReference in the ObjectRef ctor path).
+        self._counted_core = None
+        from ._private.worker import global_worker
+
+        worker = global_worker()
+        if worker.connected and hasattr(worker.core, "add_local_ref"):
+            worker.core.add_local_ref(self.id)
+            self._counted_core = worker.core
+
+    def __del__(self):
+        core = self._counted_core
+        if core is not None:
+            try:
+                core.remove_local_ref(self.id)
+            except Exception:  # noqa: BLE001 - interpreter teardown
+                pass
 
     def binary(self) -> bytes:
         return self.id.binary()
@@ -52,7 +61,11 @@ class ObjectRef:
 
     def future(self):
         """A concurrent.futures.Future resolving to the object's value."""
-        raise NotImplementedError(_NO_RUNTIME)
+        from ._private.worker import global_worker
+
+        return global_worker().core.as_future(self)
 
     def __await__(self):
-        raise NotImplementedError(_NO_RUNTIME)
+        import asyncio
+
+        return asyncio.wrap_future(self.future()).__await__()

@@ -11,7 +11,9 @@ Streaming is push-shaped: a dedicated PUMP THREAD owns the engine and
 decodes continuously whenever any request is active, buffering each
 stream's tokens as they are produced. ``stream_poll`` is a LONG-POLL: it
 blocks (up to ``wait_s``) until tokens exist, then drains the whole buffer
-in one reply.
+in one reply. ``close()`` stops the pump and drops the engine, so its
+caches go back to the allocator; a runtime actor hosting the backend calls
+it through ``__ray_shutdown__`` when it is killed or restarted.
 
     backend = LMBackend(params, cfg, max_slots=8, max_seq=2048)
     tokens, = backend([ServeRequest(([1, 2, 3],), {"max_new_tokens": 16})])
@@ -100,6 +102,7 @@ class LMBackend:
         # answering but reports unhealthy (check_health) and refuses new
         # work with ReplicaUnavailableError so a router fails over.
         self._poisoned: Optional[BaseException] = None
+        self._closed = False
 
     def _parse(self, r: ServeRequest):
         if len(r.args) > 2:
@@ -137,8 +140,10 @@ class LMBackend:
         stream events land in their buffers and every waiter is woken."""
         while True:
             with self._cond:
-                while not self._engine_has_work():
+                while not self._closed and not self._engine_has_work():
                     self._cond.wait()
+                if self._closed:
+                    return
                 try:
                     events = self.engine.step()
                 except BaseException as e:  # noqa: BLE001
@@ -171,8 +176,33 @@ class LMBackend:
             self.engine.cancel(rid)
         self._cond.notify_all()
 
+    def close(self) -> None:
+        """Fail every live request, stop the pump thread and drop the
+        engine: its KV cache and workspace are freed once nothing else
+        holds them. Later calls raise ReplicaUnavailableError. Idempotent."""
+        with self._cond:
+            if self._closed:
+                return
+            self._poison(ReplicaUnavailableError(None, "LM backend closed"))
+            self._closed = True
+            for token, rid in list(self._streams.items()):
+                self._drop_stream(token, rid)
+            self._cond.notify_all()
+            pump = self._pump_thread
+        if pump is not None and pump is not threading.current_thread():
+            pump.join()
+        with self._cond:
+            self.engine = None
+            self._pump_thread = None
+
+    # The runtime's actor-teardown hook (LocalActor.kill).
+    __ray_shutdown__ = close
+
     def _check_poisoned(self) -> None:
-        """Under self._cond: refuse new work once the engine is poisoned."""
+        """Under self._cond: refuse new work once the engine is poisoned
+        or the backend is closed."""
+        if self._closed:
+            raise ReplicaUnavailableError(None, "LM backend closed")
         if self._poisoned is not None:
             raise ReplicaUnavailableError(
                 None, "LM engine poisoned by step failure: "
@@ -180,6 +210,8 @@ class LMBackend:
 
     def check_health(self) -> dict:
         with self._cond:
+            if self._closed:
+                return {"healthy": False, "reason": "closed"}
             if self._poisoned is None:
                 return {"healthy": True}
             return {"healthy": False,
@@ -203,6 +235,8 @@ class LMBackend:
             while not all(rid in self.engine.done or rid in self._failed
                           for rid in ids):
                 self._cond.wait(0.5)
+                if self._closed:  # close() failed them and dropped the engine
+                    raise ReplicaUnavailableError(None, "LM backend closed")
             errs = [self._failed.pop(rid) for rid in ids
                     if rid in self._failed]
             if errs:
@@ -254,6 +288,8 @@ class LMBackend:
                 raise KeyError(f"unknown or finished stream {token!r}")
             self._expire_idle_streams()
             while True:
+                if self._closed:
+                    raise ReplicaUnavailableError(None, "LM backend closed")
                 # Cancelled under us? Re-check BEFORE touching
                 # _stream_seen: a refresh for a dropped token would
                 # resurrect a seen-entry nothing ever removes.
@@ -281,6 +317,8 @@ class LMBackend:
         when it is 0); ``acceptance_rate`` appears once a draft was
         made."""
         with self._cond:
+            if self._closed:
+                raise ReplicaUnavailableError(None, "LM backend closed")
             eng = self.engine
             st = dict(eng.spec_stats)
             if st["drafted"]:

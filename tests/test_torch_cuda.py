@@ -887,3 +887,56 @@ def test_cuda_tensors_roundtrip_through_serialization(dev):
                       (out["i64"], value["i64"]), (out["cpu"], value["cpu"])):
         assert got.device.type == want.device.type
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# ------------------------------------------------- the local runtime (A4)
+
+
+@pytest.fixture
+def runtime(dev):
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=4)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+def test_runtime_init_counts_the_card(runtime):
+    assert runtime.cluster_resources()["GPU"] == torch.cuda.device_count()
+    assert runtime.available_resources()["GPU"] == torch.cuda.device_count()
+
+
+def test_gpu_task_runs_k1_on_a_put_tensor_without_a_copy(runtime):
+    x = torch.randn(64, 1024, generator=_gen(3), device="cuda")
+    w = (1 + 0.1 * torch.randn(1024, generator=_gen(4), device="cuda"))
+    xr = runtime.put(x)
+
+    @runtime.remote(num_gpus=1)
+    def norm(t, weight):
+        return t.data_ptr(), fused.rms_norm(t, weight, 1e-5)
+
+    before = fused.rms_norm.launches
+    ptr, out = runtime.get(norm.remote(xr, w))
+    assert ptr == x.data_ptr() and runtime.get(xr) is x
+    assert fused.rms_norm.launches == before + 1
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out, fused._rms_norm_ref(x, w, 1e-5),
+                               atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spilled_cuda_tensor_comes_back_on_the_card(dev, dtype):
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=5 * 2**20)
+    try:
+        vals = [torch.randn(2**20, generator=_gen(i), device=dev).to(dtype)
+                for i in range(6)]
+        refs = [ray_tpu_torch.put(v) for v in vals]
+        assert ray_tpu_torch.state.object_store_stats()["spilled_objects"] > 0
+        for ref, v in zip(refs, vals):
+            got = ray_tpu_torch.get(ref)
+            assert got.device == v.device and got.dtype == v.dtype
+            assert torch.equal(got.view(torch.uint8), v.view(torch.uint8))
+    finally:
+        ray_tpu_torch.shutdown()
