@@ -114,7 +114,28 @@ it fails:
    actor-call round trips over 1,000 calls, a 10k no-op fan-out, put and
    get of a 256 MiB CUDA tensor, and the 12-request batch's wall through
    the actor and directly, in turns; (g) timeline() holds an event for
-   every task and actor call, and shutdown() leaves no runtime thread.
+   every task and actor call, and shutdown() leaves no runtime thread;
+10. the serve control plane (ray_tpu_torch.serve: master, router, replica
+   actors, HTTP ingress) with the flagship LMBackend behind
+   serve.create_backend, its engine under a probe (the Probe class
+   below): (a) one contiguous replica answers phase 3's 12 requests with
+   phase 3's tokens, the router batching them, with 17 K1 and 8 K6
+   launches a tick (counters set to 0 before and read after: the
+   replica's pump thread is the only thread launching), the replica's
+   parameters at the driver's data_ptr; (b) a stream through the handle
+   and one over HTTP NDJSON equal the whole response, a seeded sample
+   equal twice; (c) a 0.5/0.5 traffic split with a paged replica answers
+   phase 3b's 16 shared-prefix requests with the contiguous engine's
+   tokens, both K6 and K7 launching, and delete_backend frees the paged
+   pool; (d) with two replicas, one is killed with a batch in it and 16
+   more requests follow: every answer right, the master replaces it, and
+   the card holds no more than two replicas did; (e) a scale-down to one
+   drains a stream pinned to the retired replica, which frees its cache;
+   (f) serve's no-op round trips through the handle and over HTTP, the
+   12-request batch through serve against LMBackend directly, in turns,
+   stat()'s latency and the Prometheus series; (g) serve.shutdown() and
+   shutdown() leave no serve or runtime thread, and the card's memory
+   within half a replica of its value before the phase.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -124,13 +145,16 @@ from __future__ import annotations
 
 import gc
 import hashlib
+import http.client
 import json
 import math
+import random
 import re
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -151,7 +175,9 @@ from ray_tpu_torch.scheduler import reference as sched_ref
 from ray_tpu_torch.scheduler.dag import (
     collapse_chains, fanout_dag, random_dag, uniform_cluster,
 )
-from ray_tpu_torch.serve import LMBackend, ServeRequest
+from ray_tpu_torch import serve
+from ray_tpu_torch.serve import LMBackend, ServeRequest, accept_batch
+from ray_tpu_torch.serve.master import MASTER_NAME
 
 # Flagship config (scripts/model_bench.py's decode benchmark) and engine.
 FLAGSHIP = dict(vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16,
@@ -2662,10 +2688,11 @@ def spill_counters() -> dict:
     return out
 
 
-def runtime_path(params, cfg, main: dict, card: str) -> None:
+def runtime_path(params, cfg, main: dict, card: str) -> int:
     """Phase 9: the local runtime on the card, the flagship LMBackend in a
     GPU actor, GPU accounting, a placement group, spill of CUDA tensors,
-    the runtime's own costs, timeline() and shutdown()."""
+    the runtime's own costs, timeline() and shutdown(). Returns the device
+    memory the backend takes when built directly."""
     log(f"phase 9: the local runtime (ray_tpu_torch.init, tasks, actors, "
         f"object store, placement groups) on the card [{card}]")
     t_phase = time.perf_counter()
@@ -2928,6 +2955,428 @@ def runtime_path(params, cfg, main: dict, card: str) -> None:
         f"(threads of this phase "
         f"still alive: {others})")
     log(f"  phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return direct_growth
+
+
+# ------------------------------------------------ phase 10: serve on the card
+
+
+# The serve phase: the reference's documented LMBackend deployment, the
+# round trips of (f), and the new tokens of (e)'s streams, which outlast
+# the scale-down's drain.
+SERVE_CONFIG = dict(max_batch_size=8, batch_wait_timeout_s=0.05,
+                    max_concurrent_queries=16, replica_concurrency=8)
+SERVE_CALLS, DRAIN_TOKENS = 1000, 512
+SERVE_THREADS = ("serve-reconcile", "serve-http", "lm-engine-pump")
+
+
+class Probe(LMBackend):
+    """Phase 10's backend class, built by serve in each replica: the
+    flagship LMBackend on the card, warmed as phase 3's, its engine under a
+    PathProbe (a PagedProbe when paged) with the size of every batch serve
+    hands it and the data_ptr of every parameter it was given. The probes
+    stay in ``Probe.live`` for the driver thread to read; closing the
+    backend detaches its probe from the engine, so a closed replica's
+    engine is freed."""
+
+    live: list = []
+
+    def __init__(self, params, cfg, **kw):
+        super().__init__(params, cfg, device="cuda", **kw)
+        super().__call__([ServeRequest(([1, 2, 3],), {"max_new_tokens": 4})])
+        eng = self.engine
+        probe = (PagedProbe if kw.get("paged") else PathProbe)(eng)
+        probe.paged = bool(kw.get("paged"))
+        probe.batches, probe.closed = [], False
+        probe.param_ptrs = [t.data_ptr()
+                            for t in named_leaves(params).values()]
+        caches = ((eng.k_pages, eng.v_pages) if probe.paged
+                  else (eng.cache_k, eng.cache_v))
+        probe.cache_bytes = sum(t.nbytes for t in caches)
+        self.probe = probe
+        Probe.live.append(probe)
+
+    @accept_batch
+    def __call__(self, requests):
+        self.probe.batches.append(len(requests))
+        return super().__call__(requests)
+
+    def close(self) -> None:
+        super().close()
+        probe = self.probe
+        for name in ("eng", "_prefill", "_decode", "_can_admit"):
+            if hasattr(probe, name):
+                setattr(probe, name, None)
+        probe.closed = True
+
+    __ray_shutdown__ = close
+
+
+def serve_noop(x=None):
+    return x
+
+
+def since(probe, mark: dict) -> tuple:
+    """A probe's prefills, ticks and their launches after ``mark``."""
+    return (probe.prefill_launches[mark["pre"]:],
+            probe.tick_launches[mark["tick"]:])
+
+
+def mark(probe) -> dict:
+    return {"pre": len(probe.prefill_launches),
+            "tick": len(probe.tick_launches),
+            "batches": len(probe.batches)}
+
+
+def mem_now() -> int:
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def ndjson(url: str, body: dict) -> tuple:
+    """(Content-Type, decoded chunks) of one streamed HTTP request."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        ctype = resp.headers.get("Content-Type")
+        chunks = [json.loads(ln) for ln in resp if ln.strip()]
+    return ctype, chunks
+
+
+def serve_path(params, cfg, main: dict, paged: dict, direct_growth: int,
+               card: str) -> None:
+    """Phase 10: the flagship LMBackend behind the serve control plane
+    (serve.create_backend, the router, replica actors, the HTTP ingress)
+    on the card, through the reference's public API. A failed check shuts
+    serve and the runtime down before it propagates, so no replica outlives
+    the run."""
+    try:
+        serve_checks(params, cfg, main, paged, direct_growth, card)
+    except BaseException:
+        serve.shutdown()
+        rt.shutdown()
+        raise
+
+
+def serve_checks(params, cfg, main: dict, paged: dict, direct_growth: int,
+                 card: str) -> None:
+
+    log(f"phase 10: serve control plane (serve.create_backend -> router -> "
+        f"replicas, HTTP ingress) with the flagship LMBackend on the card "
+        f"[{card}]")
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    L, V = cfg.n_layers, cfg.vocab_size
+    prompts, want = serving_prompts(V), main["outs"]
+    mem_start = mem_now()
+
+    # (a) One contiguous replica behind serve.
+    rt.init()
+    serve.init(http_port=0)
+    bc = serve.BackendConfig(**SERVE_CONFIG)
+    Probe.live.clear()
+    serve.create_backend("lm:contig", Probe, params, cfg, max_slots=SLOTS,
+                         max_seq=MAX_SEQ, config=bc)
+    serve.create_endpoint("gen", backend="lm:contig", route="/generate",
+                          methods=["POST"])
+    growth = mem_now() - mem_start
+    contig = Probe.live[0]
+    if contig.param_ptrs != [t.data_ptr()
+                             for t in named_leaves(params).values()]:
+        raise AssertionError("(a) the replica's parameters are not the "
+                             "driver's tensors (data_ptr differs)")
+    if growth > direct_growth:
+        raise AssertionError(f"(a) the replica added {growth} bytes, more "
+                             f"than the backend built directly "
+                             f"({direct_growth}): were the weights copied?")
+    h = serve.get_handle("gen")
+    m0 = mark(contig)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = rt.get([h.remote(p, max_new_tokens=NEW_TOKENS) for p in prompts],
+                  timeout=600)
+    batch_s = time.perf_counter() - t0
+    launches = read_counts()
+    pres, ticks = since(contig, m0)
+    batches = contig.batches[m0["batches"]:]
+    if outs != want:
+        bad = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+        raise AssertionError(f"(a) tokens through serve differ from phase "
+                             f"3's in requests {bad}")
+    n_pre, n_tick = len(pres), len(ticks)
+    exp = {"rms_norm": n_pre + n_tick,
+           "add_rms_norm": 2 * L * (n_pre + n_tick),
+           "decode_attention": L * n_tick}
+    got = {n: c for n, c in launches.items() if c}
+    if got != exp or not n_tick:
+        raise AssertionError(f"(a) launches {got}, expected {exp}")
+    check_launches_each(pres + ticks, L, "(a) prefill or tick")
+    for i, t in enumerate(ticks):
+        if t["decode_attention"] != L:
+            raise AssertionError(f"(a) tick {i}: launches {t}")
+    st = serve.stat()
+    if max(batches) < 2 or sum(batches) != len(prompts) \
+            or not st["backends"]["lm:contig"]["batched"]:
+        raise AssertionError(f"(a) the router did not batch: batches "
+                             f"{batches}, stat {st['backends']}")
+    log(f"  (a) 12 greedy requests through get_handle('gen').remote in "
+        f"{batch_s:.3f} s: phase 3's tokens, token for token; the router "
+        f"batched them as {batches} (handle_batch calls); {n_pre} prefills, "
+        f"{n_tick} ticks, launches {got} (K1 {2 * L + 1} and K6 {L} a "
+        f"tick); the replica's {len(contig.param_ptrs)} parameters at the "
+        f"driver's data_ptr, device memory +{growth / 2**20:.1f} MiB (the "
+        f"backend built directly +{direct_growth / 2**20:.1f} MiB)")
+
+    # (b) Streams through the handle and over HTTP; seeded sampling.
+    streamed = list(h.stream(prompts[0], max_new_tokens=NEW_TOKENS))
+    ctype, chunks = ndjson(f"{serve.http_address()}/generate", {
+        "args": [prompts[0]],
+        "kwargs": {"max_new_tokens": NEW_TOKENS, "stream": True}})
+    http_toks = [t for c in chunks for t in c.get("tokens", [])]
+    if streamed != want[0] or http_toks != want[0]:
+        raise AssertionError(f"(b) streams differ from the whole response: "
+                             f"handle {streamed}, HTTP {chunks}")
+    if ctype != "application/x-ndjson" or not chunks[-1].get("done") \
+            or any(c.get("done") for c in chunks[:-1]):
+        raise AssertionError(f"(b) HTTP stream: type {ctype}, chunks "
+                             f"{chunks}")
+    sample_kw = {"max_new_tokens": 16, "temperature": 0.8, "seed": 42}
+    s1 = rt.get(h.remote(prompts[3], **sample_kw))
+    s2 = rt.get(h.remote(prompts[3], **sample_kw))
+    if s1 != s2 or len(s1) != 16:
+        raise AssertionError(f"(b) seeded sampling differs: {s1} {s2}")
+    log(f"  (b) handle.stream and HTTP NDJSON ({ctype}, {len(chunks)} "
+        f"chunks, the last done) each give the whole response's "
+        f"{NEW_TOKENS} tokens; seeded sample through the handle equal "
+        f"twice: {s1[:6]}...")
+
+    # (c) A traffic split between the contiguous and the paged engine.
+    m_paged0 = mem_now()
+    serve.create_backend("lm:paged", Probe, params, cfg, max_slots=SLOTS,
+                         max_seq=MAX_SEQ, paged=True, page_size=PAGE,
+                         config=bc)
+    paged_growth = mem_now() - m_paged0
+    pprobe = Probe.live[1]
+    serve.set_traffic("gen", {"lm:contig": 0.5, "lm:paged": 0.5})
+    shared, want_shared = paged_traffic(V)[2], paged["want_shared"]
+    random.seed(SEED)   # the router draws the split from module random
+    reset_counts()
+    split = rt.get([h.remote(p, max_new_tokens=NEW_TOKENS) for p in shared],
+                   timeout=600)
+    launches = read_counts()
+    per_backend = {tag: w["count"] for tag, w in
+                   serve.stat()["metrics"]["backends"].items()}
+    if split != want_shared:
+        bad = [i for i, (a, b) in enumerate(zip(split, want_shared))
+               if a != b]
+        raise AssertionError(f"(c) split answers differ from the contiguous "
+                             f"engine's in requests {bad}")
+    if not per_backend.get("lm:paged") or not pprobe.batches:
+        raise AssertionError(f"(c) the paged backend served nothing: "
+                             f"{per_backend}")
+    if launches["decode_attention"] == 0 \
+            or launches["paged_decode_attention"] == 0:
+        raise AssertionError(f"(c) launches {launches}: both decode kernels "
+                             f"must run")
+    train = {n: launches[n] for n in ("softmax_xent", "flash_forward",
+                                      "flash_backward_dq",
+                                      "flash_backward_dkv",
+                                      "rms_norm_backward")}
+    if any(train.values()):
+        raise AssertionError(f"(c) training kernels ran: {train}")
+    serve.set_traffic("gen", {"lm:contig": 1.0})
+    m_del0 = mem_now()
+    serve.delete_backend("lm:paged")
+    paged_freed = m_del0 - mem_now()
+    if not pprobe.closed or paged_freed < pprobe.cache_bytes:
+        raise AssertionError(
+            f"(c) delete_backend freed {paged_freed} bytes, less than the "
+            f"paged replica's pool ({pprobe.cache_bytes}); closed "
+            f"{pprobe.closed}")
+    log(f"  (c) split 0.5/0.5 with LMBackend(paged=True, page_size={PAGE}) "
+        f"(+{paged_growth / 2**20:.1f} MiB): 16 shared-prefix requests "
+        f"equal the contiguous engine's tokens; served per backend "
+        f"{per_backend}; paged batches {pprobe.batches}; launches (two pump "
+        f"threads, counters not atomic: each above 0) K6 "
+        f"{launches['decode_attention']}, K7 "
+        f"{launches['paged_decode_attention']}; delete_backend closed the "
+        f"paged replica and freed {paged_freed / 2**20:.1f} MiB (its pool "
+        f"{pprobe.cache_bytes / 2**20:.1f} MiB)")
+
+    # (d) Failover and replacement: a replica killed with requests in it.
+    master = rt.get_actor(MASTER_NAME)
+    serve.update_backend_config("lm:contig", {"num_replicas": 2})
+    victim_h = rt.get(master.get_replicas.remote("lm:contig"))[0]
+    if Probe.live[2].paged or len(Probe.live) != 3:
+        raise AssertionError("(d) the second contiguous replica is missing")
+    mem_two = mem_now()
+    m1 = mark(contig)
+    refs = [h.remote(p, max_new_tokens=NEW_TOKENS) for p in shared]
+    wait_until("(d) a batch in the replica to be killed",
+               lambda: len(contig.batches) > m1["batches"], timeout=60)
+    t_kill = time.perf_counter()
+    rt.kill(victim_h)
+    # A second wave right after the kill: until the master's next probe
+    # the router still counts the dead replica, so some of it fails over.
+    refs += [h.remote(p, max_new_tokens=NEW_TOKENS) for p in shared]
+    failover = rt.get(refs, timeout=600)
+    answered_s = time.perf_counter() - t_kill
+    if failover != want_shared + want_shared:
+        raise AssertionError("(d) answers after the kill differ from the "
+                             "contiguous engine's")
+    wait_until("(d) the killed replica's backend closed",
+               lambda: contig.closed, timeout=60)
+
+    def healed():
+        s = serve.stat()
+        return (s["backends"]["lm:contig"]["up"] == 2
+                and s["fleet_counters"]["replicas_replaced"] >= 1)
+    wait_until("(d) the master brings the contiguous backend back to 2 up",
+               healed, timeout=120)
+    healed_s = time.perf_counter() - t_kill
+    st = serve.stat()
+    mem_healed = mem_now()
+    if mem_healed - mem_two > growth // 2:
+        raise AssertionError(
+            f"(d) after the replacement the card holds {mem_healed - mem_two}"
+            f" bytes more than two replicas did: the killed replica's "
+            f"engine was not freed")
+    log(f"  (d) 2 replicas; killed one with a batch in it and sent 16 more: "
+        f"all 32 answered with the contiguous engine's tokens in "
+        f"{answered_s:.3f} s "
+        f"(counters {st['counters']}); its backend closed; the master "
+        f"replaced it ({st['fleet_counters']['replicas_replaced']} replaced) "
+        f"and had 2 up after {healed_s:.3f} s; device memory after the "
+        f"replacement {(mem_healed - mem_two) / 2**20:+.1f} MiB against two "
+        f"replicas before the kill (one replica +{growth / 2**20:.1f} MiB)")
+
+    # (e) Scale-down drains a live stream on the retired replica. The
+    # streams start through the router (what handle.stream does first) and
+    # are polled only once the drain has begun, so each stays pinned to its
+    # replica until the driver reads its last token.
+    long_want = main["backend"]([ServeRequest((p,), {
+        "max_new_tokens": DRAIN_TOKENS}) for p in prompts[:2]])
+    reps = rt.get(master.get_replicas.remote("lm:contig"))
+    router = rt.get(master.get_router.remote())[0]
+    retired = [p for p in Probe.live if not p.closed and not p.paged][-1]
+    tokens = [rt.get(router.route.remote(
+        "gen", "stream_start", (p,), {"max_new_tokens": DRAIN_TOKENS}))
+        for p in prompts[:2]]
+    pinned = [rt.get(router.replica_load.remote("lm:contig", r))["streams"]
+              for r in reps]
+    if pinned != [1, 1]:
+        raise AssertionError(f"(e) streams pinned per replica {pinned}, "
+                             f"expected one on each")
+    mem_before = mem_now()
+    scaler = threading.Thread(target=serve.update_backend_config, args=(
+        "lm:contig", {"num_replicas": 1}), name="scale-down")
+    scaler.start()
+    wait_until("(e) the retired replica draining", lambda: rt.get(
+        router.stats.remote())["backends"]["lm:contig"]["draining"] == 1,
+        timeout=60)
+    streams = []
+    for tok in tokens:
+        got, done = [], False
+        while not done:
+            out = rt.get(router.route.remote("gen", "stream_poll", (tok,),
+                                             {"wait_s": 2.0}), timeout=600)
+            got, done = got + out["tokens"], out["done"]
+        streams.append(got)
+    scaler.join(120)
+    if scaler.is_alive():
+        raise AssertionError("(e) the scale-down did not end")
+    retired_freed = mem_before - mem_now()
+    if streams != long_want:
+        raise AssertionError("(e) a stream through the scale-down differs "
+                             "from its whole response")
+    if not retired.closed or retired_freed < retired.cache_bytes:
+        raise AssertionError(f"(e) the retired replica freed "
+                             f"{retired_freed} bytes (its cache "
+                             f"{retired.cache_bytes}); closed "
+                             f"{retired.closed}")
+    log(f"  (e) scale-down to 1 while two {DRAIN_TOKENS}-token streams were "
+        f"pinned, one to each replica: the drain waited for the retired "
+        f"one's, both equal their whole responses; the retired replica "
+        f"closed and freed {retired_freed / 2**20:.1f} MiB (its cache "
+        f"{retired.cache_bytes / 2**20:.1f} MiB)")
+
+    # (f) What serve costs on this host.
+    serve.create_backend("noop", serve_noop)
+    serve.create_endpoint("noop", backend="noop", route="/noop",
+                          methods=["GET"])
+    hn = serve.get_handle("noop")
+    rt.get(hn.remote())
+    rtt_h = []
+    for _ in range(SERVE_CALLS):
+        t0 = time.perf_counter()
+        rt.get(hn.remote())
+        rtt_h.append(time.perf_counter() - t0)
+    host, port = serve.http_address().split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    rtt_http = []
+    for _ in range(SERVE_CALLS):
+        t0 = time.perf_counter()
+        conn.request("GET", "/noop")
+        body = conn.getresponse().read()
+        rtt_http.append(time.perf_counter() - t0)
+        if json.loads(body) != {"result": None}:
+            raise AssertionError(f"(f) HTTP no-op answered {body!r}")
+    conn.close()
+    walls = {"direct": [], "serve": []}
+    for how in ("direct", "serve", "serve", "direct"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "direct":
+            again = main["backend"]([ServeRequest((p,), {
+                "max_new_tokens": NEW_TOKENS}) for p in prompts])
+        else:
+            again = rt.get([h.remote(p, max_new_tokens=NEW_TOKENS)
+                            for p in prompts])
+        torch.cuda.synchronize()
+        walls[how].append(time.perf_counter() - t0)
+        if again != want:
+            raise AssertionError(f"(f) {how} batch: tokens differ from "
+                                 f"phase 3's")
+    ep = serve.stat()["metrics"]["endpoints"]["gen"]
+
+    def exported():
+        text = rt_metrics.render_prometheus()
+        return ("serve_route_latency_p99_ms" in text
+                and "serve_replicas" in text)
+    wait_until("(f) render_prometheus() holds the serve series", exported)
+    log(f"  (f) no-op round trip over {SERVE_CALLS}: handle "
+        f"{pct_us(rtt_h)}, HTTP (keep-alive) {pct_us(rtt_http)}; the "
+        f"12-request batch's wall, direct "
+        f"{[round(1e3 * s, 3) for s in walls['direct']]} ms, through serve "
+        f"{[round(1e3 * s, 3) for s in walls['serve']]} ms (turns direct, "
+        f"serve, serve, direct); stat() for 'gen': {ep['count']} requests, "
+        f"p50 {ep['latency_ms_p50']} ms, p99 {ep['latency_ms_p99']} ms; "
+        f"render_prometheus() holds serve_route_latency_p99_ms and "
+        f"serve_replicas [{card}]")
+
+    # (g) Teardown.
+    serve.shutdown()
+    rt.shutdown()
+
+    def left():
+        return [t.name for t in threading.enumerate()
+                if t not in threads_before and t.name.startswith(
+                    RUNTIME_THREADS + SERVE_THREADS)]
+    wait_until(f"(g) threads alive after shutdown: {left()}",
+               lambda: not left(), timeout=30)
+    margin = direct_growth // 2
+    mem_end = mem_now()
+    if mem_end - mem_start > margin:
+        raise AssertionError(
+            f"(g) the card holds {mem_end - mem_start} bytes more than "
+            f"before phase 10 (margin {margin}: half a replica)")
+    log(f"  (g) serve.shutdown() and shutdown(): no serve-reconcile, "
+        f"serve-http, lm-engine-pump or runtime thread left; device memory "
+        f"{(mem_end - mem_start) / 2**20:+.1f} MiB against before phase 10 "
+        f"(margin {margin / 2**20:.1f} MiB, half a replica)")
+    log(f"  phase 10 in {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------------ main
@@ -2976,7 +3425,8 @@ def main() -> int:
     times.update(train_timings(card))
     train_breakdown(card, train["step_ms"])
     sched_path(card)
-    runtime_path(params, cfg, main, card)
+    direct_growth = runtime_path(params, cfg, main, card)
+    serve_path(params, cfg, main, paged, direct_growth, card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -4,7 +4,8 @@ dashboard and state API, plus a Prometheus text exposition renderer served
 at the dashboard's ``/metrics``).
 
 The port's copy of ``ray_tpu/metrics.py``: its own registry, which the
-runtime's tracing, spill and flight-recorder counters register in.
+runtime's tracing, spill and flight-recorder counters and serve's fleet
+series register in.
 """
 
 from __future__ import annotations
@@ -153,6 +154,45 @@ def flight_recorder_metrics() -> Dict[str, "Metric"]:
         "starts": get_or_create(
             Count, "flight_recorder_starts", tag_keys=("component",),
             description="flight-recorder sampler threads started"),
+    }
+
+
+def serve_fleet_metrics() -> Dict[str, "Metric"]:
+    """``serve_*`` series for the self-healing serving fleet, pushed by
+    the ServeMaster's reconcile loop: per-route latency quantiles and
+    error rate (mirrored from the router's in-actor windows so Prometheus
+    can scrape them from the dashboard's /metrics), replica counts by
+    state, fleet events (down-marks, retries, failovers, replacements,
+    scale-ups/downs), and the untagged worst-case route gauges the
+    monitor's serve SLO rules key on. Lazily registered; idempotent."""
+    return {
+        "p50": get_or_create(
+            Gauge, "serve_route_latency_p50_ms", tag_keys=("endpoint",),
+            description="p50 request latency per serve endpoint (ms)"),
+        "p99": get_or_create(
+            Gauge, "serve_route_latency_p99_ms", tag_keys=("endpoint",),
+            description="p99 request latency per serve endpoint (ms)"),
+        "error_rate": get_or_create(
+            Gauge, "serve_route_error_rate", tag_keys=("endpoint",),
+            description="fraction of failed requests per serve endpoint "
+                        "over the router's sliding window"),
+        "worst_p99": get_or_create(
+            Gauge, "serve_route_p99_ms_max",
+            description="worst per-endpoint p99 latency (ms) — the serve "
+                        "latency SLO rule's subject"),
+        "worst_error_rate": get_or_create(
+            Gauge, "serve_route_error_rate_max",
+            description="worst per-endpoint error rate — the serve "
+                        "error-rate SLO rule's subject"),
+        "replicas": get_or_create(
+            Gauge, "serve_replicas", tag_keys=("backend", "state"),
+            description="replica count per backend by state "
+                        "(up / down / draining)"),
+        "events": get_or_create(
+            Count, "serve_fleet_events", tag_keys=("kind",),
+            description="fleet lifecycle events (replicas_down / retries / "
+                        "failovers / stream_failfast / replicas_replaced / "
+                        "scale_ups / scale_downs)"),
     }
 
 

@@ -940,3 +940,62 @@ def test_spilled_cuda_tensor_comes_back_on_the_card(dev, dtype):
             assert torch.equal(got.view(torch.uint8), v.view(torch.uint8))
     finally:
         ray_tpu_torch.shutdown()
+
+
+# ------------------------------------------ the serve control plane (A5)
+
+
+def test_lm_backend_behind_serve_on_card_matches_cpu_and_kill_frees(dev):
+    """A small f32 LMBackend on the card behind serve gives the CPU
+    backend's greedy tokens; killing its replica (C8: the replica closes
+    its backend) gives its cache back and ends its pump thread."""
+    import gc
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import TransformerConfig, init_params
+    from ray_tpu_torch.serve import LMBackend, ServeRequest
+    from ray_tpu_torch.serve.master import MASTER_NAME
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2,
+                            n_heads=2, n_kv_heads=1, d_ff=256,
+                            max_seq_len=128, dtype=torch.float32)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts = [[1, 2, 3], [7, 8, 9, 10, 11], [4], [20, 21, 22, 23]]
+    cpu = LMBackend(params, cfg, max_slots=4, device="cpu")
+    want = cpu([ServeRequest((p,), {"max_new_tokens": 6}) for p in prompts])
+    cpu.close()
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        serve.init()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        serve.create_backend("lm", LMBackend, params, cfg, max_slots=4,
+                             config=serve.BackendConfig(
+                                 max_batch_size=4, batch_wait_timeout_s=0.05,
+                                 health_check_period_s=60.0))
+        serve.create_endpoint("lm", backend="lm")
+        h = serve.get_handle("lm")
+        got = ray_tpu_torch.get([h.remote(p, max_new_tokens=6)
+                                 for p in prompts], timeout=120)
+        assert got == want
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - mem0
+        assert held > 0
+        master = ray_tpu_torch.get_actor(MASTER_NAME)
+        replica = ray_tpu_torch.get(master.get_replicas.remote("lm"))[0]
+        ray_tpu_torch.kill(replica)
+        gc.collect()
+        torch.cuda.synchronize()
+        # At least the KV cache (k and v: L x slots x max_seq x KH x Dh f32)
+        # comes back; the threads' cuBLAS workspaces may stay cached.
+        cache = 2 * cfg.n_layers * 4 * cfg.max_seq_len * cfg.n_kv_heads \
+            * cfg.head_dim * 4
+        assert held - (torch.cuda.memory_allocated() - mem0) >= cache
+        assert not any(t.name == "lm-engine-pump"
+                       for t in threading.enumerate())
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()

@@ -1,7 +1,8 @@
 """Boundaries of the port: ray_tpu_torch, chip_smoke.py and flash_variants.py
 import no JAX and nothing of ray_tpu; entry points never run on the CPU
 unless asked; the CUDA wrappers never fall back to their plain versions;
-``ray_tpu_torch.ops`` exports what ``ray_tpu.ops`` does."""
+``ray_tpu_torch.ops`` and ``ray_tpu_torch.serve`` export what ``ray_tpu.ops``
+and ``ray_tpu.serve`` do."""
 
 import ast
 import os
@@ -428,3 +429,22 @@ def test_ops_package_exports_every_name_of_the_jax_ops_package():
         got = getattr(tops, name)(*(torch.from_numpy(a) for a in args), **kw)
         np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5,
                                    rtol=1e-5, err_msg=name)
+
+
+def test_serve_package_exports_every_name_of_the_jax_serve_package():
+    """``ray_tpu_torch.serve.__all__`` holds every name of
+    ``ray_tpu.serve.__all__``, each defined; the control plane's modules
+    are the reference's, one file to one file, and the fleet's metric
+    family is in the port's registry module."""
+    import ray_tpu.serve as jserve
+
+    import ray_tpu_torch.metrics
+    import ray_tpu_torch.serve as tserve
+
+    missing = sorted(set(jserve.__all__) - set(tserve.__all__))
+    assert not missing, f"ray_tpu_torch.serve lacks {missing}"
+    assert all(hasattr(tserve, n) for n in tserve.__all__)
+    for mod in ("api", "master", "router", "handle", "backend_worker",
+                "http_proxy", "metric", "config", "lm"):
+        assert (ROOT / "ray_tpu_torch" / "serve" / f"{mod}.py").is_file()
+    assert callable(ray_tpu_torch.metrics.serve_fleet_metrics)
