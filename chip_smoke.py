@@ -135,7 +135,33 @@ it fails:
    12-request batch through serve against LMBackend directly, in turns,
    stat()'s latency and the Prometheus series; (g) serve.shutdown() and
    shutdown() leave no serve or runtime thread, and the card's memory
-   within half a replica of its value before the phase.
+   within half a replica of its value before the phase;
+11. the cluster runtime (ray_tpu_torch.cluster: a GCS head with a
+   colocated node controller, three node processes, worker processes) with
+   the GCS's placement passes on the card: (a) init(address=...) against a
+   head of {CPU: 8, GPU: 1} and three nodes of {CPU: 2}, the pass knobs
+   RAY_TPU_TORCH_{PG,REASON,LOCALITY}_KERNEL=1: every node's arena native
+   (its /dev/shm segment opens as ShmObjectStore), a transfer server on
+   each, the GCS's frame pump native, no segment with a JAX prefix; (b)
+   1,000 no-op task and actor-call round trips, a 10k fan-out; (c) 2 waves
+   of 5,000 no-op tasks, each gated on one task so that it reaches the GCS
+   as one matrix tick (the second wave waits for the GCS's warm-up of the
+   bucket, and is the first the GCS routes to the card): kernel:place and
+   kernel:warmup counted, the place device cuda, the GCS's per-bucket EMAs
+   printed; a STRICT_SPREAD group of 4 bundles
+   (gang pass), an infeasible task's reason (reason pass), 8 mappers in a
+   bundle off the head and their reducers placed at the data (locality
+   pass); no kernel_fallback:* counted; (d) the flagship parameters put
+   through the arena and a num_gpus=1 actor in a worker process building
+   LMBackend from them: phase 3's tokens, 17 K1 and 8 K6 launches a tick
+   counted in the actor's process, the batch's wall beside the direct
+   one's in turns; a num_gpus=1 task waits while the actor lives (in the
+   head controller's queue for the GPU, on none of its workers) and runs
+   after kill(), when the card's free memory (device-wide) rises by at
+   least the actor's KV cache; (e) a 256 MiB CUDA tensor doubled by a task
+   on another node, its bits checked, with the copy and transfer rates;
+   (f) after shutdown() and the cluster's, none of the phase's processes,
+   /dev/shm segments or spill directories is left.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -148,10 +174,12 @@ import hashlib
 import http.client
 import json
 import math
+import os
 import random
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -3382,6 +3410,568 @@ def serve_checks(params, cfg, main: dict, paged: dict, direct_growth: int,
 # ------------------------------------------------------------------ main
 
 
+# ---------------------------------------- phase 11: the cluster on the card
+
+
+# The cluster: a head of 8 CPUs and the card with its colocated node
+# controller, and three nodes of 2 CPUs, so that a placement tick takes the
+# matrix path from 257 entries (len(entries) * alive nodes > 1024). The
+# burst: 2 waves of 5,000 no-op tasks, each gated on one object, so that a
+# wave reaches the GCS as one tick (the first cold, the second on the card);
+# the map stage: 8 mappers of 4 MiB each (above the inline limit, so the GCS
+# directory holds their sizes).
+CL_HEAD = {"CPU": 8, "GPU": 1}
+CL_NODES, CL_NODE = 3, {"CPU": 2}
+CL_KNOBS = {"RAY_TPU_TORCH_PG_KERNEL": "1", "RAY_TPU_TORCH_REASON_KERNEL": "1",
+            "RAY_TPU_TORCH_LOCALITY_KERNEL": "1"}
+CL_WAVES, CL_WAVE, CL_GATE_S = 2, 5000, 1.0
+CL_MAPS, CL_MAP_BYTES = 8, 4 * 2**20
+CL_IN_BUNDLE = 0.5         # CPUs a task in a 1-CPU bundle asks (C9)
+CL_PASSES = ("place", "warmup", "gang", "reason", "locality")
+CL_TENSOR = 64 * 2**20     # float32 elements: 256 MiB
+CL_DEVICE = "cuda"         # where the GCS must place
+
+
+class ClusterServer(Server):
+    """Phase 11's GPU actor, in a worker process of the cluster: phase 9's
+    Server, and the kernel launches of a call counted in its own process."""
+
+    def __init__(self, params, cfg):
+        t0 = time.perf_counter()
+        super().__init__(params, cfg)
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+
+    def ready(self) -> tuple:
+        leaves = named_leaves(self.params)
+        return (self.build_s, os.getpid(), len(leaves),
+                sum(t.nbytes for t in leaves.values()),
+                {str(t.device) for t in leaves.values()})
+
+    def serve_counted(self, prompts, n) -> tuple:
+        reset_counts()
+        outs = self.serve(prompts, n)
+        return outs, read_counts(), self.probed()
+
+    def serve_timed(self, prompts, n) -> tuple:
+        """The batch timed inside the worker process: its outputs, wall,
+        ticks' median wall and the process's CPU time."""
+        k = len(self.probe.ticks)
+        outs, wall, cpu = timed_batch(lambda: self.serve(prompts, n))
+        return outs, wall, median_tick_ms(self.probe.ticks[k:]), cpu
+
+
+def timed_batch(run) -> tuple:
+    """run()'s outputs, its wall in s, and the CPU time in s that this
+    process's threads took meanwhile."""
+    torch.cuda.synchronize()
+    c0, t0 = time.process_time(), time.perf_counter()
+    outs = run()
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, time.process_time() - c0
+
+
+def median_tick_ms(ticks) -> float:
+    """Median host wall of a PathProbe's decode ticks, synchronize to
+    synchronize."""
+    return float(np.median([ms for _, ms in ticks])) if ticks else float("nan")
+
+
+def cl_gate(seconds):
+    time.sleep(seconds)
+    return 0
+
+
+def cl_noop(x=None):
+    return None
+
+
+def cl_home():
+    from ray_tpu_torch._private.worker import global_worker
+
+    return global_worker().core._home_addr
+
+
+def cl_map(i):
+    return cl_home(), np.full(CL_MAP_BYTES // 8, i, np.int64)
+
+
+def cl_reduce(part):
+    return cl_home(), int(part[1][0])
+
+
+def cl_double(x):
+    t0 = time.perf_counter()
+    y = x * 2
+    torch.cuda.synchronize()
+    return y, cl_home(), str(x.device), time.perf_counter() - t0
+
+
+def port_procs() -> set:
+    """Pids of this process's descendants that run the port's cluster
+    modules (the head, the nodes and their workers)."""
+    parent, cmds = {}, {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmds[int(pid)] = f.read()
+        except OSError:
+            continue
+        if stat[0] != "Z":
+            parent[int(pid)] = int(stat[1])
+    mine, grew = {os.getpid()}, True
+    while grew:
+        more = {p for p, pp in parent.items() if pp in mine} - mine
+        mine |= more
+        grew = bool(more)
+    return {p for p in mine if b"ray_tpu_torch.cluster" in cmds.get(p, b"")}
+
+
+def alive(pids: set) -> set:
+    out = set()
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    out.add(pid)
+        except OSError:
+            pass
+    return out
+
+
+def port_segments() -> set:
+    return {n for n in os.listdir("/dev/shm")
+            if n.startswith(("rtts-", "rttr-"))}
+
+
+def spill_dirs() -> set:
+    base = os.path.join(tempfile.gettempdir(), "ray_tpu_torch_spill")
+    return set(os.listdir(base)) if os.path.isdir(base) else set()
+
+
+def gcs_stats() -> dict:
+    return global_core().gcs.call({"type": "debug_stats"})
+
+
+def kernel_cells(stats: dict) -> dict:
+    return {k: v["count"] for k, v in stats["handlers"].items()
+            if k.startswith(("kernel:", "kernel_fallback:"))}
+
+
+def cluster_start(cluster, shm0: set, t0: float, card: str) -> None:
+    """(a) The head (GCS on the card, colocated controller) and three
+    nodes; every node with the native arena and a transfer server, the
+    GCS's frame pump native, and only the port's segment names."""
+    head_s = time.perf_counter() - t0
+    threads = [threading.Thread(target=cluster.add_node,
+                                args=(dict(CL_NODE), 1))
+               for _ in range(CL_NODES)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    cluster.wait_for_nodes(CL_NODES + 1)
+    start_s = time.perf_counter() - t0
+    rt.init(address=cluster.address)
+    nodes = [n for n in rt.nodes() if n["Alive"]]
+    total = rt.cluster_resources()
+    if len(nodes) != CL_NODES + 1 or total.get("GPU") != 1 \
+            or total.get("CPU") != CL_HEAD["CPU"] + CL_NODES * CL_NODE["CPU"]:
+        raise AssertionError(f"(a) nodes {nodes}, resources {total}")
+    from ray_tpu_torch._native import ShmObjectStore, open_store
+
+    arenas, ports = [], []
+    for n in nodes:
+        name, port = n.get("StoreName", ""), n.get("TransferPort", 0)
+        store = open_store(name) if name else None
+        if not isinstance(store, ShmObjectStore):
+            raise AssertionError(f"(a) node {n['NodeID'][:12]}: arena "
+                                 f"{name!r} is {type(store).__name__}")
+        arenas.append(name)
+        ports.append(port)
+        store.close()
+        if not port or port <= 0:
+            raise AssertionError(f"(a) node {n['NodeID'][:12]}: no transfer "
+                                 f"server (port {port})")
+    stats = gcs_stats()
+    if stats["recv_stats"].get("native") != 1:
+        raise AssertionError(f"(a) the GCS's frame pump is not native: "
+                             f"{stats['recv_stats']}")
+    new = set(os.listdir("/dev/shm")) - shm0
+    foreign = sorted(n for n in new if n.startswith(("rtps-", "rtcr-")))
+    if foreign or not new <= port_segments():
+        raise AssertionError(f"(a) segments {sorted(new)}: foreign {foreign}")
+    log(f"  (a) head (GCS on {stats['place_perf']['device']}, colocated "
+        f"controller) up in {head_s:.3f} s, {CL_NODES} nodes more, all "
+        f"{len(nodes)} alive in {start_s:.3f} s; resources {total}; native "
+        f"arenas {arenas}, transfer ports {ports}; GCS frame pump native "
+        f"({stats['recv_stats']}); this run's segments {sorted(new)}, none "
+        f"with a JAX prefix")
+
+
+def cluster_round_trips(card: str) -> dict:
+    """(b) No-op task and actor-call round trips, and a 10k fan-out."""
+    fn = rt.remote(noop)
+    echo = rt.remote(Echo).remote()
+    rt.get([fn.remote() for _ in range(100)] + [echo.m.remote()], timeout=120)
+    task_rtt, actor_rtt = [], []
+    for _ in range(RT_CALLS):
+        t0 = time.perf_counter()
+        rt.get(fn.remote(), timeout=60)
+        task_rtt.append(time.perf_counter() - t0)
+    for _ in range(RT_CALLS):
+        t0 = time.perf_counter()
+        rt.get(echo.m.remote(), timeout=60)
+        actor_rtt.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out = rt.get([fn.remote() for _ in range(RT_FANOUT)], timeout=600)
+    fanout_s = time.perf_counter() - t0
+    if out != [None] * RT_FANOUT:
+        raise AssertionError("(b) the fan-out's results are wrong")
+    rt.kill(echo)
+    log(f"  (b) no-op task submit -> get round trip over {RT_CALLS}: "
+        f"{pct_us(task_rtt)}; actor call round trip: {pct_us(actor_rtt)}; "
+        f"{RT_FANOUT} no-op fan-out: {RT_FANOUT / fanout_s:.1f} tasks/s "
+        f"[{card}]")
+    return {"task_rtt": task_rtt, "actor_rtt": actor_rtt,
+            "fanout_tps": RT_FANOUT / fanout_s}
+
+
+def cluster_placement(card: str):
+    """(c) A gated burst whose ticks take the matrix path on the card; a
+    STRICT_SPREAD group (gang pass), an infeasible task (reason pass) and a
+    map stage (locality pass). Every pass counted on the card, none fell
+    back. Returns the group, whose bundles (e) uses."""
+    gate, fn = rt.remote(cl_gate), rt.remote(cl_noop)
+    waves, routes = [], []
+    for w in range(CL_WAVES):
+        g = gate.remote(CL_GATE_S)
+        t0 = time.perf_counter()
+        refs = [fn.remote(g) for _ in range(CL_WAVE)]
+        sub_s = time.perf_counter() - t0
+        if rt.get(refs, timeout=600) != [None] * CL_WAVE:
+            raise AssertionError(f"(c) wave {w}: results are wrong")
+        wall_s = time.perf_counter() - t0
+        # The driver reads the gate's ref too: while a direct-call ref
+        # stays unobserved, no idle lease goes back (ROADMAP C9), and (d)'s
+        # GPU task would wait behind a GPU lease taken at the kill.
+        rt.get(g, timeout=60)
+        stats = gcs_stats()
+        cells = kernel_cells(stats)
+        numpy_ticks = sum(v["samples"] for k, v in stats["place_perf"].items()
+                          if k.startswith("numpy:"))
+        routes.append((cells.get("kernel:place", 0), numpy_ticks))
+        waves.append((round(sub_s, 3), round(wall_s, 3)))
+        if w == 0:
+            # The first wave's bucket is cold: the GCS serves it on numpy
+            # and warms the kernel on a thread. The next wave waits for
+            # the warm-up, as traffic that keeps coming would.
+            wait_until("(c) the GCS's warm-up of the wave's bucket",
+                       lambda: kernel_cells(gcs_stats()), timeout=120)
+    perf = stats["place_perf"]
+    buckets = sorted({int(k.split(":")[1]) for k in perf if ":" in k})
+    steps = [(k - k0, n - n0) for (k, n), (k0, n0)
+             in zip(routes, [(0, 0)] + routes[:-1])]
+    log(f"  (c) {CL_WAVES} waves of {CL_WAVE} no-op tasks, each gated on a "
+        f"{CL_GATE_S} s task, {CL_WAVES * CL_WAVE} in all: (submit s, wave "
+        f"wall s) {waves}; matrix ticks of each wave (on the card, on "
+        f"numpy) {steps}")
+    log(f"  (c) matrix ticks by bucket (T rounded up to a power of two) "
+        f"{buckets}; the GCS's per-bucket EMAs {perf}; device passes "
+        f"{cells}; phase:gcs_place {stats['handlers']['phase:gcs_place']} "
+        f"[{card}]")
+    if perf.get("device", "").split(":")[0] != CL_DEVICE:
+        raise AssertionError(f"(c) the place device is {perf.get('device')}")
+    if not cells.get("kernel:place") or not cells.get("kernel:warmup"):
+        raise AssertionError(f"(c) the placement pass never ran on the "
+                             f"card: {cells}")
+
+    pg = rt.placement_group([{"CPU": 1}] * (CL_NODES + 1),
+                            strategy="STRICT_SPREAD")
+    if not pg.wait(60):
+        raise AssertionError(f"(c) STRICT_SPREAD group: "
+                             f"{rt.placement_group_table(pg)}")
+    row = rt.placement_group_table(pg)[pg.id.hex()]
+    addr = {n["NodeID"]: tuple(n["Address"]) for n in rt.nodes()}
+    head = driver_node()
+    other = next((i for i, n in enumerate(row["nodes"]) if n != head), None)
+    if len(set(row["nodes"])) != CL_NODES + 1 or other is None:
+        raise AssertionError(f"(c) STRICT_SPREAD group: {row}")
+    bad = rt.remote(cl_noop).options(num_cpus=64).remote()
+    wait_until("(c) the infeasible task's reason", lambda: any(
+        r["pending_reason"] == "infeasible"
+        for r in rt.state.tasks(name_contains="cl_noop", state="PENDING")))
+    rt.cancel(bad)
+    # The map stage: every mapper in the group's bundle on a node other
+    # than the head; the reducers, placed freely, must follow their input.
+    # They ask 1/8 CPU each, so that all fit in the one CPU the node has
+    # beside the bundle: the hint decides where they run, not a queue.
+    # A bundle task asks half the bundle's CPU: the driver's direct-call
+    # lease for that resource class, taken at the first submit, holds the
+    # other half (ROADMAP C9).
+    data_node = addr[row["nodes"][other]]
+    maps = [rt.remote(cl_map).options(
+        placement_group=pg, placement_group_bundle_index=other,
+        num_cpus=CL_IN_BUNDLE).remote(i) for i in range(CL_MAPS)]
+    rt.wait(maps, num_returns=CL_MAPS, timeout=120)
+    reds = rt.get([rt.remote(cl_reduce).options(
+        num_cpus=1 / CL_MAPS).remote(m) for m in maps], timeout=120)
+    where = {tuple(h) for h, _ in rt.get(maps, timeout=120)} | \
+        {tuple(h) for h, _ in reds}
+    if [i for _, i in reds] != list(range(CL_MAPS)) or where != {data_node}:
+        raise AssertionError(f"(c) mappers and reducers ran on {where}, "
+                             f"the data's node is {data_node}")
+    cells = kernel_cells(gcs_stats())
+    missing = [p for p in CL_PASSES if not cells.get(f"kernel:{p}")]
+    fell = {k: c for k, c in cells.items() if k.startswith("kernel_fallback")}
+    if missing or fell:
+        raise AssertionError(f"(c) passes not on the card {missing}, "
+                             f"fallbacks {fell}")
+    log(f"  (c) STRICT_SPREAD group of {CL_NODES + 1} bundles "
+        f"{row['state']}, one on each node; an infeasible task's reason "
+        f"'infeasible'; {CL_MAPS} mappers in the bundle on node "
+        f"{row['nodes'][other][:12]} (not the head), their {CL_MAPS} "
+        f"reducers all placed on that node by the locality pass; device "
+        f"passes {cells}, no fallback")
+    return pg, other
+
+
+def cluster_flagship(params, cfg, main: dict, card: str) -> None:
+    """(d) The flagship LMBackend in a GPU actor in a worker process, its
+    parameters through the arena; a GPU task pending until kill(); the
+    card's memory back when the worker process dies."""
+    L = cfg.n_layers
+    prompts = serving_prompts(cfg.vocab_size)
+    want_outs = main["outs"]
+    leaves = named_leaves(params)
+    param_bytes = sum(t.nbytes for t in leaves.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pref = rt.put(params)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server = rt.remote(num_gpus=1)(ClusterServer).remote(pref, cfg)
+    build_s, pid, n_leaves, nbytes, devs = rt.get(server.ready.remote(),
+                                                  timeout=600)
+    ready_s = time.perf_counter() - t0
+    if pid == os.getpid() or n_leaves != len(leaves) \
+            or nbytes != param_bytes or devs != {"cuda:0"}:
+        raise AssertionError(f"(d) actor pid {pid}, {n_leaves} tensors, "
+                             f"{nbytes} bytes on {devs}")
+    outs, launches, (n_pre, n_tick, ticks) = rt.get(
+        server.serve_counted.remote(prompts, NEW_TOKENS), timeout=600)
+    if outs != want_outs:
+        bad = [i for i, (a, b) in enumerate(zip(outs, want_outs)) if a != b]
+        raise AssertionError(f"(d) the actor's tokens differ from phase 3's "
+                             f"in requests {bad}")
+    want = {"rms_norm": n_pre + n_tick,
+            "add_rms_norm": 2 * L * (n_pre + n_tick),
+            "decode_attention": L * n_tick}
+    got = {n: c for n, c in launches.items() if c}
+    per_tick = {"rms_norm": 1, "add_rms_norm": 2 * L, "decode_attention": L}
+    if got != want or not n_tick or any(
+            {n: c for n, c in t.items() if c} != per_tick for t in ticks):
+        raise AssertionError(f"(d) launches {got}, expected {want}; every "
+                             f"tick {per_tick}")
+    log(f"  (d) {n_leaves} parameter tensors ({param_bytes / 2**20:.1f} MiB) "
+        f"through the arena in a put of {put_s:.3f} s; the num_gpus=1 "
+        f"ClusterServer in worker process {pid} built LMBackend in "
+        f"{build_s:.3f} s ({ready_s:.3f} s from submit to ready, the "
+        f"process's start and the parameters' copy to the card included); "
+        f"phase 3's 12 requests: phase 3's tokens; {n_pre} prefills, "
+        f"{n_tick} ticks, launches counted in the actor's process {got}, "
+        f"every tick {per_tick}")
+    # Each turn's wall as the driver sees it, and inside the process that
+    # serves: the batch's wall, its ticks' median wall and the process's
+    # CPU time, so that the actor's cost splits into the call and the work
+    # in the worker process.
+    walls = {"direct": [], "actor": []}
+    probe = main["probe"]
+    for how in ("direct", "actor", "actor", "direct"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "direct":
+            k = len(probe.ticks)
+            again, inner, cpu = timed_batch(lambda: main["backend"]([
+                ServeRequest((p,), {"max_new_tokens": NEW_TOKENS})
+                for p in prompts]))
+            tick = median_tick_ms(probe.ticks[k:])
+        else:
+            again, inner, tick, cpu = rt.get(
+                server.serve_timed.remote(prompts, NEW_TOKENS), timeout=600)
+        torch.cuda.synchronize()
+        walls[how].append((round(1e3 * (time.perf_counter() - t0), 3),
+                           round(1e3 * inner, 3), round(tick, 3),
+                           round(1e3 * cpu, 3)))
+        if again != want_outs:
+            raise AssertionError(f"(d) {how} batch: tokens differ")
+    for how in ("direct", "actor"):
+        log(f"  (d) the 12-request batch {how} (turns direct, actor, actor, "
+            f"direct): (driver's wall ms, wall ms in the serving process, "
+            f"median tick ms, the process's CPU ms) {walls[how]} [{card}]")
+    log(f"  (d) {os.cpu_count()} cores; {len(port_procs())} port processes")
+
+    x, w = rms_inputs(64, torch.bfloat16, seed=9)
+    held = rt.available_resources().get("GPU", 0.0)
+    ref = rt.remote(num_gpus=1)(k1_task).remote(rt.put(x), w)
+    ready, _ = rt.wait([ref], timeout=2.0)
+    row = rt.state.tasks(name_contains="k1_task")[0]
+    head_workers = global_core()._home_controller().call(
+        {"type": "stats"})["workers"]
+    running = [w for w in head_workers if "k1_task" in (w["task"] or "")]
+    # The GCS places a task it cannot admit now on a node whose totals fit
+    # it (queue-at-node), so its reason in the GCS is empty: it must be
+    # dispatched to the head, the one node with a GPU, and run on none of
+    # the head's workers, held in the controller's queue for the GPU. A
+    # task still in the GCS must carry a reason.
+    at_head = row["state"] == "DISPATCHED" and not running \
+        and row["node_id"] == driver_node()
+    in_gcs = row["state"] == "PENDING" and bool(row["pending_reason"])
+    if ready or held != 0.0 or not (at_head or in_gcs):
+        raise AssertionError(f"(d) the GPU task did not wait for the actor: "
+                             f"ready {ready}, GPU available {held}, {row}, "
+                             f"the head's workers {head_workers}")
+    cache_bytes = rt.get(server.cache_bytes.remote())
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    rt.kill(server)
+    wait_until("(d) the card's memory back after kill()",
+               lambda: torch.cuda.mem_get_info()[0] - free0 >= cache_bytes,
+               timeout=30)
+    back_s = time.perf_counter() - t0
+    back = torch.cuda.mem_get_info()[0] - free0
+    wait_until(f"(d) the actor's worker process {pid} gone after kill()",
+               lambda: not alive({pid}), timeout=30)
+    try:
+        _, k1_out = rt.get(ref, timeout=120)
+    except rt.exceptions.GetTimeoutError:
+        raise AssertionError(
+            f"(d) the GPU task did not run after kill(): "
+            f"{rt.state.tasks(name_contains='k1_task')}, GPU available "
+            f"{rt.available_resources().get('GPU', 0.0)}, the head's workers "
+            f"{global_core()._home_controller().call({'type': 'stats'})}")
+    err = check_close("(d) the GPU task's rms_norm [64, 1024] bfloat16",
+                      k1_out.to("cuda"), fused._rms_norm_ref(x, w, EPS),
+                      atol=2e-2, rtol=2e-2)
+    log(f"  (d) num_gpus=1 task pending while the actor held the card "
+        f"(GPU available {held}; state {row['state']} on node "
+        f"{row['node_id'][:12]} (the head), reason {row['pending_reason']!r}, "
+        f"on none of the head's {len(head_workers)} workers); kill(): the "
+        f"card's free memory (device-wide) up {back / 2**20:.1f} MiB within "
+        f"{back_s:.3f} s "
+        f"(the actor's KV cache {cache_bytes / 2**20:.1f} MiB); then the task "
+        f"ran, err {err:.3e}")
+
+
+def cluster_cuda_tensor(pg, other: int, card: str) -> None:
+    """(e) A 256 MiB CUDA tensor put by the driver, doubled by a task in the
+    group's bundle on a node other than the head, and got back with its
+    bits."""
+    head = tuple(global_core()._home_addr)
+    big = torch.randn(CL_TENSOR, generator=cuda_gen(SEED + 11),
+                      device="cuda")
+    nbytes = big.nbytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = big.cpu()
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = host.to("cuda")
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    del host, again
+    t0 = time.perf_counter()
+    bref = rt.put(big)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = rt.remote(cl_double).options(
+        placement_group=pg, placement_group_bundle_index=other,
+        num_cpus=CL_IN_BUNDLE).remote(bref)
+    rt.wait([out], timeout=120)
+    task_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y, where, xdev, dbl_s = rt.get(out, timeout=120)
+    get_s = time.perf_counter() - t0
+    if y.device.type != "cuda" or xdev != "cuda:0" or tuple(where) == head or \
+            not torch.equal(y.view(torch.int32), (big * 2).view(torch.int32)):
+        raise AssertionError(f"(e) the doubled tensor: device {y.device}, "
+                             f"task's input on {xdev}, node {where}")
+    gb = 1e9
+    log(f"  (e) 256 MiB CUDA tensor: the driver's D2H copy alone "
+        f"{nbytes / gb / d2h_s:.3f} GB/s, H2D alone "
+        f"{nbytes / gb / h2d_s:.3f} GB/s; put (D2H into the head's arena) "
+        f"{nbytes / gb / put_s:.3f} GB/s; the task on node {where} (pulls it "
+        f"across, copies it to the card, doubles it, {dbl_s * 1e3:.3f} ms, "
+        f"copies it back off) done in {task_s:.3f} s "
+        f"({2 * nbytes / gb / task_s:.3f}"
+        f" GB/s of both copies); get (transfer to the head's arena and H2D) "
+        f"{nbytes / gb / get_s:.3f} GB/s; the bits equal 2 x the input "
+        f"[{card}]")
+
+
+def global_core():
+    from ray_tpu_torch._private.worker import global_worker
+
+    return global_worker().core
+
+
+def driver_node() -> str:
+    """The node id of the driver's node (the head's colocated controller)."""
+    home = tuple(global_core()._home_addr)
+    return next(n["NodeID"] for n in rt.nodes()
+                if tuple(n["Address"]) == home)
+
+
+def cluster_teardown(cluster, shm0: set, spill0: set, card: str) -> None:
+    """(f) shutdown() and the cluster's shutdown leave no process, segment
+    or spill directory of the port."""
+    procs = port_procs()
+    t0 = time.perf_counter()
+    rt.shutdown()
+    cluster.shutdown()
+    wait_until(f"(f) port processes alive: {alive(procs)}",
+               lambda: not alive(procs), timeout=30)
+    left_shm = port_segments() - shm0
+    left_spill = spill_dirs() - spill0
+    if left_shm or left_spill:
+        raise AssertionError(f"(f) left behind: segments {left_shm}, spill "
+                             f"directories {left_spill}")
+    log(f"  (f) shutdown in {time.perf_counter() - t0:.3f} s: none of the "
+        f"{len(procs)} port processes (head, nodes, workers) alive, no "
+        f"/dev/shm segment or spill directory left")
+
+
+def cluster_path(params, cfg, main: dict, card: str) -> None:
+    """Phase 11: the cluster runtime on the card (see the docstring)."""
+    log(f"phase 11: the cluster runtime (init(address=...), GCS, node "
+        f"controllers, worker processes) with the GCS placing on the card "
+        f"[{card}]")
+    from ray_tpu_torch.cluster.testing import Cluster
+
+    t_phase = time.perf_counter()
+    spill0, shm0 = spill_dirs(), set(os.listdir("/dev/shm"))
+    t0 = time.perf_counter()
+    cluster = Cluster(head_resources=CL_HEAD, num_workers=2,
+                      extra_env=CL_KNOBS)
+    try:
+        cluster_start(cluster, shm0, t0, card)
+        cluster_round_trips(card)
+        pg, other = cluster_placement(card)
+        cluster_flagship(params, cfg, main, card)
+        cluster_cuda_tensor(pg, other, card)
+        rt.remove_placement_group(pg)
+    except BaseException:
+        rt.shutdown()
+        cluster.shutdown()
+        raise
+    cluster_teardown(cluster, shm0, spill0, card)
+    log(f"  phase 11 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -3427,6 +4017,7 @@ def main() -> int:
     sched_path(card)
     direct_growth = runtime_path(params, cfg, main, card)
     serve_path(params, cfg, main, paged, direct_growth, card)
+    cluster_path(params, cfg, main, card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

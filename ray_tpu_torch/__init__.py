@@ -28,7 +28,12 @@ in-process object store with spill to disk and reference counting,
 placement groups, ``timeline()`` and ``state``, with ``num_gpus`` and the
 ``GPU`` resource in place of the JAX package's ``num_tpus`` and ``TPU``.
 Tasks and actors run on threads that share torch's default CUDA stream, so
-a CUDA tensor passes between them in order and without a copy.
+a CUDA tensor passes between them in order and without a copy. The cluster
+runtime (``cluster``: ``init(address=...)``, a GCS head, node controllers
+and worker processes on one or more hosts) runs the same API across
+processes; its GCS places with the batch placement passes on the head's
+device, and a CUDA tensor crosses processes as its bytes, copied to the
+host on the way out and back to the card on the way in.
 """
 
 from __future__ import annotations

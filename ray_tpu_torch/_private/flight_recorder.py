@@ -17,9 +17,12 @@ its own sampler under 3% of warm batched throughput.
 The port's copy of ``ray_tpu/_private/flight_recorder.py``, reading its
 variables under the ``RAY_TPU_TORCH_`` prefix. The local runtime starts it as
 the "driver" component and ``shutdown()`` stops it; ``snapshot()`` and
-``drain()`` read its counts in this process. Shipping them to the GCS
-profile-stacks table and the ``cli profile`` report on them come with the
-cluster runtime (A6 of ROADMAP.md).
+``drain()`` read its counts in this process. In the cluster runtime the
+GCS, controllers, workers and drivers ship ``drain_tagged()`` to the GCS
+profile-stacks table on their stats cadence and account each flush with
+``flush_metrics``. The ``cli profile`` report on that table
+(``self_time_table``, ``attribution_table``) comes with the CLI (A6b of
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -221,6 +224,15 @@ class FlightRecorder:
             self._oncpu = {}
         return counts
 
+    def drain_tagged(self) -> tuple:
+        """(wall_counts, oncpu_weights) — the tagged flush the producers
+        ship so `cli profile` can print wall and on-CPU columns instead
+        of one conflated self-time figure."""
+        with self._counts_lock:
+            counts, self._counts = self._counts, {}
+            oncpu, self._oncpu = self._oncpu, {}
+        return counts, {k: round(v, 2) for k, v in oncpu.items() if v}
+
     def snapshot(self) -> Dict[str, int]:
         with self._counts_lock:
             return dict(self._counts)
@@ -274,4 +286,18 @@ def _recorder_metrics(component: str) -> None:
         flight_recorder_metrics()["starts"].record(
             1.0, tags={"component": component})
     except Exception:  # noqa: BLE001 - metrics must never block startup
+        pass
+
+
+def flush_metrics(rec: FlightRecorder, n_stacks: int) -> None:
+    """Account one drain flush into the flight_recorder_* series."""
+    try:
+        from ..metrics import flight_recorder_metrics
+
+        m = flight_recorder_metrics()
+        m["samples"].record(float(n_stacks),
+                            tags={"component": rec.component})
+        m["overhead_s"].record(rec.sample_seconds,
+                               tags={"component": rec.component})
+    except Exception:  # noqa: BLE001
         pass

@@ -6,7 +6,9 @@ put/get/wait — reference: ``src/ray/core_worker/core_worker.h:262``) fused wit
 a single node's scheduler (resource admission + dispatch — reference:
 ``src/ray/raylet/node_manager.cc:993`` DispatchTasks) into one in-process
 engine. The port's copy of ``ray_tpu/_private/runtime.py``; the cluster
-backend that reuses this machinery comes with A6 of ROADMAP.md.
+backend (``ray_tpu_torch/cluster``) reuses the same submission/actor
+machinery but routes placement through the GCS's batch placement passes
+and objects through the shared-memory arena.
 
 Execution model:
   - normal tasks run on a growable thread pool; admission is controlled by the

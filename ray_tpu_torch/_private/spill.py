@@ -22,10 +22,19 @@ the local runtime's ``MemoryStore`` uses:
     the spiller — a runaway producer slows down rather than OOM-killing
     the node.
 
-``SpillingStore``, the reference's spill policy around a node's
-shared-memory arena, comes with that arena in the cluster runtime (A6 of
-ROADMAP.md). Spill directories default to ``<tmpdir>/ray_tpu_torch_spill``,
-apart from the JAX package's ``<tmpdir>/ray_tpu_spill``.
+``SpillingStore``
+    Wraps a node's arena (``ShmObjectStore`` or ``PyObjectStore``) with the
+    spill policy: puts that would push the arena over its high watermark
+    first spill cold **unpinned sealed** objects (LRU by last wrapper
+    access) down to the low watermark; objects that cannot fit even then go
+    straight to disk. ``get()`` is arena-first, disk-second — a disk hit is
+    transparently restored into the arena (making room the same way) so hot
+    objects migrate back. Per-owner byte quotas evict LRU-within-owner.
+    The cluster's node controllers use it; the copy of the reference's is
+    whole.
+
+Spill directories default to ``<tmpdir>/ray_tpu_torch_spill/<store>``,
+apart from the JAX package's.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ import threading
 import time
 import zlib
 from typing import Callable, Dict, List, Optional
+
+from .._native.shm_store import PinnedBuffer, StoreFullError, _pad_id
 
 # File layout: header (magic, crc32 of payload, payload size) + payload.
 _MAGIC = b"RTPSPL1\n"
@@ -231,6 +242,398 @@ class SpillManager:
             os.rmdir(self.dir)
         except OSError:
             pass  # non-empty (foreign files) or already gone
+
+
+class _DiskBufferReleaser:
+    """Release target for buffers served straight from the spill disk:
+    drops only the wrapper's pin, never the arena's — forwarding to the
+    arena could steal a pin the arena took for a DIFFERENT reader if the
+    object was restored between the disk read and this release."""
+
+    __slots__ = ("wrapper",)
+
+    def __init__(self, wrapper: "SpillingStore"):
+        self.wrapper = wrapper
+
+    def _release(self, object_id: bytes) -> None:
+        self.wrapper._drop_pin(object_id)
+
+
+class SpillingStore:
+    """Arena + spill policy with the ShmObjectStore interface (put/create/
+    seal/get/..., plus owner tags and watermark maintenance)."""
+
+    def __init__(self, base, spill: SpillManager,
+                 high_watermark: float = 0.85, low_watermark: float = 0.60,
+                 owner_quota: int = 0):
+        self.base = base
+        self.spill = spill
+        self.name = getattr(base, "name", "")
+        self.high_watermark = high_watermark
+        self.low_watermark = low_watermark
+        self.owner_quota = owner_quota
+        self._lock = threading.RLock()
+        # Policy state for objects that went THROUGH this wrapper. Foreign
+        # arena objects (same-host workers write zero-copy) are visible via
+        # base.list_ids() and get spilled as coldest-unknown candidates.
+        self._meta: Dict[bytes, Dict] = {}  # oid -> {owner,size,used,sealed}
+        self._pins: Dict[bytes, int] = {}
+        self._owner_bytes: Dict[str, int] = {}
+        self._staging: Dict[bytes, bytearray] = {}
+        self._clock = 0
+        self._num_spills = 0
+        self._num_restores = 0
+        self._quota_evictions = 0
+        self._disk_releaser = _DiskBufferReleaser(self)
+        self.on_spill: Optional[Callable[[bytes, int], None]] = None
+        self.on_restore: Optional[Callable[[bytes, int], None]] = None
+
+    def set_spill_callbacks(self, on_spill=None, on_restore=None) -> None:
+        self.on_spill = on_spill
+        self.on_restore = on_restore
+
+    # ------------------------------------------------------------- accounting
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _track(self, oid: bytes, size: int, owner: Optional[str],
+               sealed: bool) -> None:
+        with self._lock:
+            self._meta[oid] = {"owner": owner, "size": size,
+                               "used": self._tick(), "sealed": sealed}
+            if owner:
+                self._owner_bytes[owner] = (
+                    self._owner_bytes.get(owner, 0) + size)
+
+    def _untrack(self, oid: bytes) -> None:
+        with self._lock:
+            meta = self._meta.pop(oid, None)
+            if meta and meta.get("owner"):
+                owner = meta["owner"]
+                left = self._owner_bytes.get(owner, 0) - meta["size"]
+                if left > 0:
+                    self._owner_bytes[owner] = left
+                else:
+                    self._owner_bytes.pop(owner, None)
+
+    def _touch(self, oid: bytes) -> None:
+        with self._lock:
+            meta = self._meta.get(oid)
+            if meta is not None:
+                meta["used"] = self._tick()
+
+    # ------------------------------------------------------------ spill policy
+    def _capacity(self) -> int:
+        st = self.base.stats()
+        return st.get("capacity") or st.get("arena_bytes") or 0
+
+    def _used(self) -> int:
+        return self.base.stats().get("used_bytes", 0)
+
+    def _victims(self, exclude=()) -> List[bytes]:
+        """Spill candidates, coldest first: foreign arena objects (unknown
+        recency — treated coldest), then wrapper-tracked sealed unpinned
+        objects by LRU. Wrapper-pinned objects are NEVER candidates."""
+        with self._lock:
+            known = []
+            for oid, meta in self._meta.items():
+                if oid in exclude or not meta["sealed"]:
+                    continue
+                if self._pins.get(oid, 0) > 0:
+                    continue
+                known.append((meta["used"], oid))
+            known.sort()
+            tracked = set(self._meta)
+        foreign = [oid for oid in self.base.list_ids()
+                   if oid not in tracked and oid not in exclude]
+        return foreign + [oid for _, oid in known]
+
+    def _spill_one(self, oid: bytes, quota: bool = False) -> int:
+        """Copy one arena object to disk and drop its arena bytes. Returns
+        bytes reclaimed (0 = skipped: unsealed, vanished, or natively
+        pinned so the delete deferred)."""
+        blob = self.base.get_bytes(oid)
+        if blob is None:
+            return 0
+        self.spill.write(oid, blob)
+        self.base.delete(oid)
+        if self.base.contains(oid):
+            # A reader in another process holds a native pin: the delete
+            # deferred, so no bytes came back yet. The disk copy is still
+            # correct (objects are immutable) and will serve gets once the
+            # arena copy goes.
+            reclaimed = 0
+        else:
+            reclaimed = len(blob)
+        self._untrack(oid)
+        with self._lock:
+            self._num_spills += 1
+            if quota:
+                self._quota_evictions += 1
+        if quota:
+            _SpillMetrics.get().quota_evictions.record(1)
+        if self.on_spill is not None:
+            try:
+                self.on_spill(oid, len(blob))
+            except Exception:  # noqa: BLE001 - telemetry must not fail puts
+                pass
+        return reclaimed
+
+    def _make_room(self, need: int, exclude=()) -> None:
+        """Spill cold objects until ``need`` more bytes fit under the high
+        watermark (aiming for the low watermark so puts don't re-trigger
+        immediately). Best-effort: stops when out of candidates."""
+        cap = self._capacity()
+        if cap <= 0:
+            return
+        # Aim low, but never demand more room than the arena has.
+        target = min(int(cap * self.low_watermark),
+                     max(0, cap - need - (need // 16) - 4096))
+        if self._used() + need <= cap * self.high_watermark:
+            return
+        for oid in self._victims(exclude=exclude):
+            self._spill_one(oid)
+            if self._used() <= target:
+                break
+
+    def maybe_spill(self) -> int:
+        """Watermark maintenance: spill down to the low watermark when the
+        arena is above the high one. Called periodically by the controller
+        so direct (wrapper-bypassing) writers keep finding headroom instead
+        of triggering the native evictor. Returns objects spilled."""
+        cap = self._capacity()
+        if cap <= 0 or self._used() <= cap * self.high_watermark:
+            return 0
+        before = self._num_spills
+        target = int(cap * self.low_watermark)
+        for oid in self._victims():
+            self._spill_one(oid)
+            if self._used() <= target:
+                break
+        return self._num_spills - before
+
+    def _enforce_quota(self, owner: Optional[str], exclude=()) -> None:
+        if not owner or not self.owner_quota:
+            return
+        while self._owner_bytes.get(owner, 0) > self.owner_quota:
+            with self._lock:
+                candidates = sorted(
+                    (meta["used"], oid)
+                    for oid, meta in self._meta.items()
+                    if meta.get("owner") == owner and meta["sealed"]
+                    and oid not in exclude
+                    and self._pins.get(oid, 0) == 0)
+            for _, oid in candidates:
+                if self._spill_one(oid, quota=True):
+                    break
+            else:
+                return  # everything left is pinned/unsealed: give up
+
+    # ---------------------------------------------------------------- write
+    def put(self, object_id: bytes, data, owner: Optional[str] = None) -> bool:
+        oid = _pad_id(object_id)
+        if self.spill.contains(oid) or self.base.contains(oid):
+            return False  # immutable double-put is a no-op
+        if not isinstance(data, (bytes, bytearray)):
+            data = bytes(memoryview(data).cast("B"))
+        size = len(data)
+        # Proactively make room so base.put never reaches the native
+        # evictor (which DROPS bytes instead of spilling them).
+        self._make_room(size, exclude=(oid,))
+        try:
+            created = self.base.put(oid, data)
+        except StoreFullError:
+            # Cannot fit even after spilling (oversized, or all pinned):
+            # the object itself goes to disk — degradation, not failure.
+            self.spill.write(oid, data)
+            with self._lock:
+                self._num_spills += 1
+            if self.on_spill is not None:
+                try:
+                    self.on_spill(oid, size)
+                except Exception:  # noqa: BLE001
+                    pass
+            return True
+        if created:
+            self._track(oid, size, owner, sealed=True)
+            self._enforce_quota(owner, exclude=(oid,))
+        return created
+
+    def create(self, object_id: bytes, size: int,
+               owner: Optional[str] = None) -> Optional[memoryview]:
+        oid = _pad_id(object_id)
+        if self.spill.contains(oid):
+            return None
+        self._make_room(size, exclude=(oid,))
+        try:
+            view = self.base.create(oid, size)
+        except StoreFullError:
+            # Stage off-arena; seal() spills it.
+            buf = bytearray(size)
+            with self._lock:
+                self._staging[oid] = buf
+            return memoryview(buf)
+        if view is not None:
+            self._track(oid, size, owner, sealed=False)
+        return view
+
+    def seal(self, object_id: bytes) -> None:
+        oid = _pad_id(object_id)
+        with self._lock:
+            staged = self._staging.pop(oid, None)
+        if staged is not None:
+            self.spill.write(oid, bytes(staged))
+            with self._lock:
+                self._num_spills += 1
+            if self.on_spill is not None:
+                try:
+                    self.on_spill(oid, len(staged))
+                except Exception:  # noqa: BLE001
+                    pass
+            return
+        try:
+            self.base.seal(oid)
+        except StoreFullError:
+            # PyObjectStore defers its arena charge to seal time; make room
+            # and retry once, then fall back to its staged bytes.
+            self._make_room(0, exclude=(oid,))
+            try:
+                self.base.seal(oid)
+            except StoreFullError:
+                staged = getattr(self.base, "_staging", None)
+                if staged and staged[0] == oid:
+                    self.spill.write(oid, bytes(staged[1]))
+                    self.base.abort(oid)
+                return
+        with self._lock:
+            meta = self._meta.get(oid)
+            owner = meta.get("owner") if meta else None
+            if meta is not None:
+                meta["sealed"] = True
+        self._enforce_quota(owner, exclude=(oid,))
+
+    def abort(self, object_id: bytes) -> None:
+        oid = _pad_id(object_id)
+        with self._lock:
+            if self._staging.pop(oid, None) is not None:
+                return
+        self._untrack(oid)
+        self.base.abort(oid)
+
+    # ----------------------------------------------------------------- read
+    def get(self, object_id: bytes) -> Optional[PinnedBuffer]:
+        oid = _pad_id(object_id)
+        buf = self.base.get(oid)
+        if buf is not None:
+            self._touch(oid)
+            with self._lock:
+                self._pins[oid] = self._pins.get(oid, 0) + 1
+            # Reroute release through this wrapper so pin accounting (the
+            # never-spill-pinned invariant) sees it.
+            buf.store = self
+            return buf
+        data = self._restore(oid)
+        if data is None:
+            return None
+        buf = self.base.get(oid)
+        if buf is not None:  # restored into the arena
+            self._touch(oid)
+            with self._lock:
+                self._pins[oid] = self._pins.get(oid, 0) + 1
+            buf.store = self
+            return buf
+        # Arena had no room (all pinned): serve the disk bytes directly.
+        with self._lock:
+            self._pins[oid] = self._pins.get(oid, 0) + 1
+        return PinnedBuffer(self._disk_releaser, oid, memoryview(data))
+
+    def _restore(self, oid: bytes) -> Optional[bytes]:
+        """Disk-second half of get(): read + verify, then migrate back into
+        the arena when it fits (making room by spilling colder objects)."""
+        data = self.spill.read(oid)
+        if data is None:
+            return None
+        self._make_room(len(data), exclude=(oid,))
+        try:
+            if self.base.put(oid, data):
+                self._track(oid, len(data), None, sealed=True)
+                self.spill.delete(oid)
+                with self._lock:
+                    self._num_restores += 1
+                if self.on_restore is not None:
+                    try:
+                        self.on_restore(oid, len(data))
+                    except Exception:  # noqa: BLE001
+                        pass
+        except StoreFullError:
+            pass  # serve from the disk copy; it stays authoritative
+        return data
+
+    def get_bytes(self, object_id: bytes) -> Optional[bytes]:
+        buf = self.get(object_id)
+        if buf is None:
+            return None
+        try:
+            return buf.tobytes()
+        finally:
+            buf.release()
+
+    def contains(self, object_id: bytes) -> bool:
+        oid = _pad_id(object_id)
+        return self.base.contains(oid) or self.spill.contains(oid)
+
+    def in_arena(self, object_id: bytes) -> bool:
+        return self.base.contains(_pad_id(object_id))
+
+    def is_spilled(self, object_id: bytes) -> bool:
+        return self.spill.contains(_pad_id(object_id))
+
+    def _drop_pin(self, object_id: bytes) -> None:
+        oid = _pad_id(object_id)
+        with self._lock:
+            n = self._pins.get(oid, 0)
+            if n > 1:
+                self._pins[oid] = n - 1
+            else:
+                self._pins.pop(oid, None)
+
+    def _release(self, object_id: bytes) -> None:
+        """Release of an arena-backed buffer handed out by get()."""
+        oid = _pad_id(object_id)
+        self._drop_pin(oid)
+        self.base._release(oid)
+
+    # --------------------------------------------------------------- manage
+    def delete(self, object_id: bytes) -> None:
+        oid = _pad_id(object_id)
+        self._untrack(oid)
+        self.base.delete(oid)
+        self.spill.delete(oid)
+
+    def list_ids(self, max_ids: int = 1 << 16) -> List[bytes]:
+        ids = self.base.list_ids(max_ids)
+        seen = set(ids)
+        for oid in self.spill.ids():
+            if oid not in seen and len(ids) < max_ids:
+                ids.append(oid)
+        return ids
+
+    def stats(self) -> Dict[str, int]:
+        st = self.base.stats()
+        with self._lock:
+            st.update({
+                "spilled_bytes": self.spill.spilled_bytes,
+                "spilled_objects": self.spill.num_objects,
+                "num_spills": self._num_spills,
+                "num_restores": self._num_restores,
+                "quota_evictions": self._quota_evictions,
+            })
+        return st
+
+    def close(self) -> None:
+        self.base.close()
+        self.spill.close(remove=True)
 
 
 def resolve_spill_dir(config, store_name: str) -> Optional[str]:

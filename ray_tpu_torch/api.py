@@ -1,8 +1,8 @@
 """Public API surface (reference: python/ray/worker.py + __init__.py).
 
-The port's copy of ``ray_tpu/api.py`` for the local runtime: ``num_gpus``
-and the ``GPU`` resource in place of ``num_tpus`` and ``TPU``; cluster mode
-(A6 of ROADMAP.md) raises NotImplementedError.
+The port's copy of ``ray_tpu/api.py``: ``num_gpus`` and the ``GPU``
+resource in place of ``num_tpus`` and ``TPU``, and ``RAY_TPU_TORCH_ADDRESS``
+in place of ``RAY_TPU_ADDRESS``.
 """
 
 from __future__ import annotations
@@ -30,13 +30,14 @@ def init(
     _system_config: Optional[Dict[str, Any]] = None,
     ignore_reinit_error: bool = False,
 ):
-    """Start the in-process local runtime.
+    """Start (or connect to) a runtime.
 
-    Cluster mode, ``address="tcp://host:port"`` or a set
-    ``RAY_TPU_TORCH_ADDRESS`` (reference: RAY_ADDRESS,
-    python/ray/worker.py:461), is not ported yet: it comes with the cluster
-    runtime (A6 of ROADMAP.md) and raises NotImplementedError until then.
-    ``address="local"`` names the local runtime explicitly.
+    ``address=None`` starts the in-process local runtime unless
+    ``RAY_TPU_TORCH_ADDRESS`` is set in the environment (reference:
+    RAY_ADDRESS, python/ray/worker.py:461); ``address="local"`` names the
+    local runtime explicitly. ``address="tcp://host:port"`` (or
+    ``"host:port"``) connects to a running cluster head
+    (``ray_tpu_torch.cluster``).
 
     ``num_gpus=None`` counts the CUDA devices torch sees; the ``GPU``
     resource is left out when there are none.
@@ -49,14 +50,17 @@ def init(
             return worker.core
         raise RuntimeError("ray_tpu_torch.init() called twice; use ignore_reinit_error=True")
 
-    if address is not None and address != "local":
-        raise NotImplementedError(
-            f"cluster mode (address={address!r}) needs the cluster runtime, "
-            "which is not ported yet: it comes with A6 of ROADMAP.md")
-
     config = reset_config(_system_config)
     if object_store_memory is not None:
         config.object_store_memory = object_store_memory
+
+    if address is not None and address != "local":
+        from .cluster.client import connect_driver
+
+        worker.core = connect_driver(address, config)
+        worker.mode = "driver"
+        worker.connected = True
+        return worker.core
 
     if num_cpus is None:
         num_cpus = os.cpu_count() or 1
@@ -181,26 +185,68 @@ def available_resources() -> Dict[str, float]:
 
 def timeline(filename: Optional[str] = None,
              limit: Optional[int] = None) -> List[Dict[str, Any]]:
-    """Export the runtime's profile events as chrome://tracing JSON.
-    ``limit`` keeps only the newest N spans.
+    """Export profile events as chrome://tracing JSON. ``limit`` keeps only
+    the newest N spans (fetched server-side in cluster mode).
 
     Reference: python/ray/state.py:914 timeline() / chrome_tracing_dump.
     """
     worker = global_worker()
     worker.check_connected()
     events = []
-    for kind, name, start, end, extra in list(worker.core.events.events):
-        events.append({
-            "cat": kind,
-            "name": name,
-            "ph": "X",
-            "ts": start * 1e6,
-            "dur": (end - start) * 1e6,
-            "pid": (f"trace:{extra['trace'][:12]}" if "trace" in extra
-                    else extra.get("actor_id", "driver")),
-            "tid": extra.get("task_id", "0"),
-            "args": extra,
-        })
+    if hasattr(worker.core, "cluster_trace_spans"):
+        # Per-task control-plane traces (sampled tasks): each trace becomes
+        # one lane whose phase spans show where that task's latency went.
+        try:
+            spans = worker.core.cluster_trace_spans(limit=limit)
+        except Exception:  # noqa: BLE001 - GCS restart window
+            spans = []
+        for sp in spans:
+            events.append({
+                "cat": "phase",
+                "name": sp["phase"],
+                "ph": "X",
+                "ts": sp["start"] * 1e6,
+                "dur": (sp["end"] - sp["start"]) * 1e6,
+                "pid": f"trace:{sp['trace'][:12]}",
+                "tid": sp.get("src", "0"),
+                "args": {"trace": sp["trace"],
+                         "task_id": sp.get("task_id", ""),
+                         "src": sp.get("src", "")},
+            })
+    if hasattr(worker.core, "cluster_profile_events"):
+        # Cluster mode: all spans (the driver's included, flushed here)
+        # live in the GCS profile table.
+        worker.core.flush_events()
+        for ev in worker.core.cluster_profile_events(limit=limit):
+            events.append({
+                "cat": ev["cat"],
+                "name": ev["name"],
+                "ph": "X",
+                "ts": ev["start"] * 1e6,
+                "dur": (ev["end"] - ev["start"]) * 1e6,
+                "pid": ev["extra"].get(
+                    "actor_id",
+                    ev["extra"].get(
+                        "lane",                    # cluster-unique worker
+                        (f"worker-{ev['extra']['worker_pid']}"
+                         if "worker_pid" in ev["extra"]
+                         else ev.get("origin", "worker")))),
+                "tid": ev["extra"].get("task_id", "0"),
+                "args": ev["extra"],
+            })
+    else:
+        for kind, name, start, end, extra in list(worker.core.events.events):
+            events.append({
+                "cat": kind,
+                "name": name,
+                "ph": "X",
+                "ts": start * 1e6,
+                "dur": (end - start) * 1e6,
+                "pid": (f"trace:{extra['trace'][:12]}" if "trace" in extra
+                        else extra.get("actor_id", "driver")),
+                "tid": extra.get("task_id", "0"),
+                "args": extra,
+            })
     if limit is not None and len(events) > limit:
         events = events[-limit:]
     if filename:

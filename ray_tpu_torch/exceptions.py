@@ -127,7 +127,7 @@ class TaskTimeoutError(RayTpuError):
 
 class TaskPoisonedError(RayTpuError):
     """The function fingerprint was quarantined after repeated worker-fatal
-    failures (``RAY_TPU_TORCH_POISON_THRESHOLD`` strikes); submissions fail fast
+    failures (three strikes); submissions fail fast
     instead of churning worker respawns. Clear with
     ``cli quarantine --clear <fingerprint>``."""
 

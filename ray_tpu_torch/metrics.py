@@ -4,8 +4,9 @@ dashboard and state API, plus a Prometheus text exposition renderer served
 at the dashboard's ``/metrics``).
 
 The port's copy of ``ray_tpu/metrics.py``: its own registry, which the
-runtime's tracing, spill and flight-recorder counters and serve's fleet
-series register in.
+runtime's tracing, spill and flight-recorder counters, serve's fleet
+series and the cluster's families register in. The reference's
+``slo_metrics`` serves its monitor and comes with it (A6b of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -145,15 +146,101 @@ def get_or_create(cls, name: str, **kwargs) -> "Metric":
     return cls(name, **kwargs)
 
 
+def result_plane_metrics() -> Dict[str, "Metric"]:
+    """Counters for the same-host result data plane (completion ring +
+    inline small results): how results reached their owner, serialized
+    bytes that skipped the arena, and torn-record ring degradations.
+    Lazily registered; ``get_or_create`` makes re-entry idempotent."""
+    return {
+        "records": get_or_create(
+            Count, "result_plane_records", tag_keys=("via",),
+            description="results delivered per path (ring / inline / "
+                        "inline_push / fetch_rpc)"),
+        "inline_bytes": get_or_create(
+            Count, "result_inline_bytes",
+            description="serialized result bytes that rode inline in "
+                        "completion records instead of arena slots"),
+        "ring_torn": get_or_create(
+            Count, "result_ring_torn_records",
+            description="torn completion records detected (ring degraded "
+                        "to the RPC path)"),
+    }
+
+
+def placement_group_metrics() -> Dict[str, "Metric"]:
+    """``pg:*`` counters for the gang-scheduling control plane: lifecycle
+    transitions by kind (created / rescheduled / removed / infeasible)
+    and the current pending-gang count. Lazily registered; idempotent."""
+    return {
+        "events": get_or_create(
+            Count, "pg_lifecycle_events", tag_keys=("kind",),
+            description="placement-group lifecycle transitions by kind "
+                        "(created / rescheduled / removed / infeasible)"),
+        "pending": get_or_create(
+            Gauge, "pg_pending_groups",
+            description="placement groups currently awaiting gang "
+                        "admission (PENDING or RESCHEDULING)"),
+    }
+
+
 def flight_recorder_metrics() -> Dict[str, "Metric"]:
     """``flight_recorder_*`` series for the continuous stack sampler:
-    sampler starts by component. The reference's shipped-stacks and
-    overhead series are recorded by the cluster's flush, which comes with
-    A6. Lazily registered; idempotent."""
+    sampler starts, folded stacks shipped, and the sampler's own cumulative
+    wall time (the overhead being bounded by the A/B smoke). Lazily
+    registered; idempotent."""
     return {
         "starts": get_or_create(
             Count, "flight_recorder_starts", tag_keys=("component",),
             description="flight-recorder sampler threads started"),
+        "samples": get_or_create(
+            Count, "flight_recorder_stacks_sampled",
+            tag_keys=("component",),
+            description="folded thread stacks shipped to the GCS "
+                        "profile-stacks table"),
+        "overhead_s": get_or_create(
+            Gauge, "flight_recorder_overhead_seconds",
+            tag_keys=("component",),
+            description="cumulative wall seconds spent inside the stack "
+                        "sampler itself"),
+    }
+
+
+def loopmon_metrics() -> Dict[str, "Metric"]:
+    """``loopmon_*`` series for the event-loop observatory: per-component
+    loop-lag maxima, select-dwell vs callback-run seconds, ready-queue
+    depth, and the off-CPU truth gauges (process CPU cores-equivalent,
+    context-switch counters) the on/off-CPU split rows read. Mirrored
+    into Prometheus by the GCS rollup tick. Lazily registered;
+    idempotent."""
+    return {
+        "lag_max_ms": get_or_create(
+            Gauge, "loopmon_lag_max_ms", tag_keys=("component",),
+            description="max scheduled-vs-actual heartbeat delta (loop "
+                        "lag) in the last stats window"),
+        "dwell_s": get_or_create(
+            Count, "loopmon_select_dwell_seconds",
+            tag_keys=("component",),
+            description="event-loop wall seconds spent blocked in "
+                        "selector select/poll (IO + timer wait)"),
+        "cb_s": get_or_create(
+            Count, "loopmon_callback_run_seconds",
+            tag_keys=("component",),
+            description="event-loop wall seconds spent running "
+                        "callbacks/task steps"),
+        "queue_depth": get_or_create(
+            Gauge, "loopmon_ready_queue_depth_max",
+            tag_keys=("component",),
+            description="max ready-callback queue depth sampled by the "
+                        "loop-lag heartbeat in the last window"),
+        "cpu_cores": get_or_create(
+            Gauge, "loopmon_proc_cpu_cores", tag_keys=("component",),
+            description="process CPU consumption in cores-equivalent "
+                        "over the last stats window (utime+stime delta "
+                        "/ wall) — the on/off-CPU split numerator"),
+        "ctx_switches": get_or_create(
+            Count, "loopmon_ctx_switches", tag_keys=("component", "kind"),
+            description="process context switches (kind=voluntary|"
+                        "involuntary) observed by the off-CPU sampler"),
     }
 
 
@@ -193,6 +280,78 @@ def serve_fleet_metrics() -> Dict[str, "Metric"]:
             description="fleet lifecycle events (replicas_down / retries / "
                         "failovers / stream_failfast / replicas_replaced / "
                         "scale_ups / scale_downs)"),
+    }
+
+
+def job_profiler_metrics() -> Dict[str, "Metric"]:
+    """``job_*`` series for the per-job critical-path profiler: the
+    scheduler-efficiency ratio of the last completed job (the SLO
+    floor's subject), its makespan, critical-path exec lower bound, and
+    the blocked time attributed on the critical path (by bucket).
+    Lazily registered; idempotent."""
+    return {
+        "efficiency": get_or_create(
+            Gauge, "job_sched_efficiency",
+            description="critical-path lower bound / actual makespan of "
+                        "the last completed job (1.0 = unimprovable)"),
+        "makespan": get_or_create(
+            Gauge, "job_makespan_s",
+            description="wall-clock makespan of the last completed job"),
+        "critical_exec": get_or_create(
+            Gauge, "job_critical_exec_s",
+            description="summed exec seconds along the last completed "
+                        "job's critical path (the makespan lower bound)"),
+        "blocked": get_or_create(
+            Gauge, "job_blocked_s", tag_keys=("bucket",),
+            description="blocked seconds attributed on the critical "
+                        "path, by gap bucket (waiting-for-deps / "
+                        "queue:<reason> / dispatch-to-exec / "
+                        "result-register)"),
+    }
+
+
+def transfer_metrics() -> Dict[str, "Metric"]:
+    """Data-plane counters/gauges rolled up head-side from each node's
+    heartbeat-carried transfer totals (the TransferManager's stats block).
+    Lazily registered; idempotent."""
+    return {
+        "bytes_in": get_or_create(
+            Count, "transfer_bytes_in", tag_keys=("node",),
+            description="payload bytes pulled from remote arenas (landed "
+                        "chunks, partial pulls included)"),
+        "bytes_out": get_or_create(
+            Count, "transfer_bytes_out", tag_keys=("node",),
+            description="payload bytes served by the node's native "
+                        "transfer server"),
+        "inflight": get_or_create(
+            Gauge, "transfer_inflight", tag_keys=("node",),
+            description="pulls currently streaming on the node"),
+        "queue_depth": get_or_create(
+            Gauge, "transfer_queue_depth", tag_keys=("node",),
+            description="pulls queued behind the per-source inflight cap"),
+        "chunk_retries": get_or_create(
+            Count, "transfer_chunk_retries", tag_keys=("node",),
+            description="chunk streams broken mid-pull and resumed "
+                        "against another holder"),
+    }
+
+
+def audit_metrics() -> Dict[str, "Metric"]:
+    """``audit_*`` series for the GCS consistency auditor: findings per
+    kind from the latest reconciliation pass (a gauge — zeros export so
+    recoveries are visible and Prometheus can alert on ``> 0``), passes
+    run, and the last pass's wall time. Lazily registered; idempotent."""
+    return {
+        "findings": get_or_create(
+            Gauge, "audit_findings", tag_keys=("kind",),
+            description="consistency-audit findings by kind in the latest "
+                        "reconciliation pass (0 = that invariant holds)"),
+        "runs": get_or_create(
+            Count, "audit_runs",
+            description="consistency-audit reconciliation passes run"),
+        "duration": get_or_create(
+            Gauge, "audit_last_duration_seconds",
+            description="wall seconds the latest audit pass took"),
     }
 
 

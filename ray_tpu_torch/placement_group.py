@@ -19,7 +19,7 @@ Strategies:
                  bundles than nodes is INFEASIBLE (reported, never a hang).
 
 The local runtime admits a group on its one node when the bundles' sum
-fits. The cluster's gang admission (A6 of ROADMAP.md) is a data-parallel
+fits. The cluster's gang admission (``cluster/gcs.py``) is a data-parallel
 prefix-sum pass of the batch placement passes
 (``ray_tpu_torch/scheduler/kernel.py::admit_gangs``), mirrored
 bit-for-bit by ``scheduler/reference.py::admit_gangs_reference``.

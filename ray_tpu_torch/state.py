@@ -5,10 +5,9 @@ the memory summary that backs the ``ray memory`` CLI view, and — state API
 v2 — the bounded/filterable/paginated task table (``tasks()`` /
 ``summarize_tasks()``) with per-task pending-reason attribution.
 
-The port's copy of ``ray_tpu/state.py`` for the local runtime: every query
-reads the in-process runtime. The reference's cluster branches (the GCS
-task table, object directory and node-stats table) come with the cluster
-runtime (A6 of ROADMAP.md).
+The port's copy of ``ray_tpu/state.py``: in the local runtime every query
+reads the in-process runtime; connected to a cluster, the GCS task table,
+object directory and node-stats table.
 """
 
 from __future__ import annotations
@@ -39,13 +38,18 @@ def tasks(state: Optional[str] = None, kind: Optional[str] = None,
     10k rows per page). Local mode serves the same row shape from the
     in-process runtime's task records (same lifecycle + exec stamps, so
     durations don't read 0 in local runs)."""
-    rows = [r for r in _local_task_rows(_core())
-            if (not state or r["state"] == state)
-            and (not kind or r["kind"] == kind)
-            and (not node_id or r["node_id"] == node_id)
-            and (not reason or r.get("pending_reason") == reason)
-            and (not name_contains or name_contains in r["name"])]
-    return rows[offset:offset + limit]
+    core = _core()
+    if getattr(core, "gcs", None) is None:
+        rows = [r for r in _local_task_rows(core)
+                if (not state or r["state"] == state)
+                and (not kind or r["kind"] == kind)
+                and (not node_id or r["node_id"] == node_id)
+                and (not reason or r.get("pending_reason") == reason)
+                and (not name_contains or name_contains in r["name"])]
+        return rows[offset:offset + limit]
+    return core.list_tasks(state=state, kind=kind, node_id=node_id,
+                           reason=reason, name_contains=name_contains,
+                           limit=limit, offset=offset)["tasks"]
 
 
 def _local_task_rows(core) -> List[Dict[str, Any]]:
@@ -56,11 +60,14 @@ def _local_task_rows(core) -> List[Dict[str, Any]]:
 def summarize_tasks() -> Dict[str, Any]:
     """Per-state counts over the cluster task table, with the PENDING set
     broken down by pending reason:
-    ``{total, states, kinds, pending_reasons, ...}``. The summary is
-    kept by the cluster's task table (A6); the local runtime gives the
-    empty summary, as the reference's local mode does."""
-    _core()
-    return {"total": 0, "states": {}, "kinds": {}, "pending_reasons": {}}
+    ``{total, states, kinds, pending_reasons, ...}``."""
+    core = _core()
+    if getattr(core, "gcs", None) is None:
+        return {"total": 0, "states": {}, "kinds": {},
+                "pending_reasons": {}}
+    out = core.task_summary()
+    out.pop("ok", None)
+    return out
 
 
 def nodes() -> List[Dict[str, Any]]:
@@ -75,9 +82,26 @@ def actors() -> Dict[str, Dict[str, Any]]:
 def objects() -> Dict[str, Dict[str, Any]]:
     """object_id hex -> {size, has_error} for every stored object.
 
-    Reads the in-process store (reference: GlobalState.objects over the
-    GCS object table)."""
-    store = _core().store
+    Local mode reads the in-process store; cluster mode reads the GCS
+    object directory (reference: GlobalState.objects over the GCS object
+    table)."""
+    core = _core()
+    store = getattr(core, "store", None)
+    if store is None:
+        gcs = getattr(core, "gcs", None)
+        if gcs is None:
+            return {}
+        resp = gcs.call({"type": "list_objects", "limit": 1_000_000})
+        return {
+            hex_id: {"size_bytes": info.get("size", 0),
+                     # Served by the GCS (error blobs live in its error
+                     # table, not the directory) — was hardcoded False,
+                     # which made `cli memory` lie about errored objects.
+                     "has_error": bool(info.get("has_error")),
+                     "locations": info.get("locations", []),
+                     "spilled": info.get("spilled", [])}
+            for hex_id, info in resp.get("objects", {}).items()
+        }
     out = {}
     with store._lock:
         for oid, obj in store._objects.items():
@@ -94,7 +118,10 @@ _local_sampler = None
 def node_stats() -> Dict[str, Dict[str, Any]]:
     """node_id -> physical stats from each node's reporter (reference:
     dashboard reporter datapath). Local mode samples this process's host."""
-    _core()
+    core = _core()
+    gcs = getattr(core, "gcs", None)
+    if gcs is not None:
+        return gcs.call({"type": "get_node_stats"})["stats"]
     global _local_sampler
     from ._private.node_stats import NodeStatsSampler
 
@@ -114,7 +141,11 @@ def available_resources() -> Dict[str, float]:
 
 
 def object_store_stats() -> Dict[str, int]:
-    return _core().store.stats()
+    core = _core()
+    store = getattr(core, "store", None)
+    if store is None:
+        return {}
+    return store.stats()
 
 
 def memory_summary() -> str:
@@ -144,6 +175,13 @@ def jobs() -> List[Dict[str, Any]]:
     in-process task records; with no records yet it degrades to the
     single driver-job row."""
     core = _core()
+    if getattr(core, "gcs", None) is not None:
+        rows = core.list_jobs().get("jobs", [])
+        if rows:
+            for row in rows:
+                row["is_dead"] = not row.get("active", False)
+            return rows
+        return [{"job_id": core.job_id.hex(), "is_dead": False}]
     by_job: Dict[str, Dict[str, Any]] = {}
     for r in _local_task_rows(core):
         job = r["task_id"][24:32]  # tail 4 bytes of the 16-byte TaskID
@@ -171,8 +209,15 @@ def job_profile(job_id: Optional[str] = None) -> Dict[str, Any]:
     the only job): makespan, the duration-weighted longest path with
     per-hop blocked-time buckets, per-node skew, and the
     scheduler-efficiency ratio (critical-path exec lower bound / actual
-    makespan). Profiles the in-process records directly."""
-    rows, job = _local_job_rows(_core(), job_id)
+    makespan). Cluster mode asks the GCS; local mode profiles the
+    in-process records directly."""
+    core = _core()
+    if getattr(core, "gcs", None) is not None:
+        resp = core.job_profile(job_id=job_id)
+        if not resp.get("ok"):
+            raise ValueError(resp.get("error", "job_profile failed"))
+        return resp["profile"]
+    rows, job = _local_job_rows(core, job_id)
     from .scheduler import critical_path as _cp
     import time as _time
 
@@ -185,7 +230,15 @@ def job_timeline(job_id: Optional[str] = None,
     per node, one slice per task exec window, flow arrows per dep edge.
     With ``path``, writes the JSON file and returns the path; without,
     returns the trace dict (``json.dump``-able)."""
-    rows, job = _local_job_rows(_core(), job_id)
+    core = _core()
+    if getattr(core, "gcs", None) is not None:
+        resp = core.job_profile(job_id=job_id, include_rows=True)
+        if not resp.get("ok"):
+            raise ValueError(resp.get("error", "job_profile failed"))
+        rows = resp.get("rows", [])
+        job = resp["profile"].get("job_id", "")
+    else:
+        rows, job = _local_job_rows(core, job_id)
     from .scheduler import critical_path as _cp
 
     trace = _cp.chrome_trace(rows, job_id=job)

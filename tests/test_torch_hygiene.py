@@ -2,10 +2,13 @@
 import no JAX and nothing of ray_tpu; entry points never run on the CPU
 unless asked; the CUDA wrappers never fall back to their plain versions;
 ``ray_tpu_torch.ops`` and ``ray_tpu_torch.serve`` export what ``ray_tpu.ops``
-and ``ray_tpu.serve`` do."""
+and ``ray_tpu.serve`` do; the cluster runtime's sources read only the port's
+own variables and name only the port's own shared-memory segments and spill
+directories."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -62,6 +65,41 @@ def test_port_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in _FORBIDDEN, (path, name)
+
+
+_CLUSTER_SOURCES = sorted(
+    p for d in ("cluster", "_native", "_private")
+    for p in (ROOT / "ray_tpu_torch" / d).rglob("*")
+    if p.suffix in (".py", ".cc"))
+# The JAX package's knob prefix, arena and completion-ring prefixes and
+# spill directory: a port process that named one would read the other
+# package's settings or sweep its segments on a shared machine.
+_FOREIGN_NAMES = re.compile(r"RAY_TPU_(?!TORCH_)|rtps-|rtcr-|ray_tpu_spill")
+
+
+@pytest.mark.parametrize("path", _CLUSTER_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_cluster_sources_name_only_the_ports_own_resources(path):
+    hits = [(i, line.strip()) for i, line in
+            enumerate(path.read_text().splitlines(), 1)
+            if _FOREIGN_NAMES.search(line)]
+    assert hits == [], hits
+
+
+def test_cluster_segment_prefixes_are_the_ports_own():
+    from ray_tpu_torch._native import completion_ring
+    from ray_tpu_torch._private import spill
+
+    class _Cfg:
+        object_spill_enabled = True
+        object_spill_dir = ""
+
+    ring = completion_ring.ring_name(b"\x00\x00\x00\x01")
+    assert ring.startswith("rttr-")
+    assert os.path.basename(os.path.dirname(
+        spill.resolve_spill_dir(_Cfg(), "rtts-x"))) == "ray_tpu_torch_spill"
+    src = (ROOT / "ray_tpu_torch" / "cluster" / "controller.py").read_text()
+    assert 'f"rtts-{self.node_id[:12]}"' in src
 
 
 def _tiny():

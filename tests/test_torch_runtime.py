@@ -5,7 +5,8 @@ actors, named actors, cluster state), each program run through
 numpy-seeded inputs (numpy arrays for JAX, CPU tensors for the port), with
 their values, error types and fields, ObjectRef hexes, wait splits,
 resources and timeline event kinds held equal. Then the port's own surface:
-``num_gpus`` and the ``GPU`` resource, actor restarts, cluster mode raising,
+``num_gpus`` and the ``GPU`` resource, actor restarts, cluster mode failing
+without a head as JAX's does,
 ``ObjectRef.future()`` before and after ``init()``, and ``shutdown()``
 leaving no runtime thread."""
 
@@ -789,10 +790,18 @@ def test_init_counts_the_cards_torch_sees(monkeypatch):
 
 
 def test_cluster_mode_raises_naming_a6(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A6"):
-        ray_tpu_torch.init(address="tcp://127.0.0.1:1")
+    """Cluster mode is ported (A6): ``init(address=...)`` with no head
+    there fails as the JAX package's does, and only the port's own
+    ``RAY_TPU_TORCH_ADDRESS`` names an address."""
+    errs = []
+    for rt in PKGS:
+        with pytest.raises(ConnectionError) as e:
+            rt.init(address="tcp://127.0.0.1:1")
+        errs.append((type(e.value).__name__, e.value.errno))
+        assert not rt.is_initialized()
+    assert errs[0] == errs[1]
     monkeypatch.setenv("RAY_TPU_TORCH_ADDRESS", "tcp://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ConnectionError):
         ray_tpu_torch.init()
     assert not ray_tpu_torch.is_initialized()
     monkeypatch.delenv("RAY_TPU_TORCH_ADDRESS")
