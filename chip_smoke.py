@@ -184,7 +184,31 @@ it fails:
    (/metrics); (d) ray_tpu_actor_kill and ray_tpu_shutdown: the card's
    free memory (device-wide) rises by at least the actor's KV cache; (e)
    ``cli stop`` leaves no process of the session, no rtts-/rttr- segment
-   and no session file.
+   and no session file;
+13. the train library and the single-device models: (a) the MoE
+   transformer's train step (ray_tpu_torch.models.moe_transformer) at the
+   flagship's widths and depth with 8 experts of d_ff 4096, top 2,
+   capacity 1.25, bf16 with f32 params, batch 8, seq 2048, AdamW at weight
+   decay 1e-4, 5 steps on one seeded batch: per step exactly 1 plain, 16
+   residual and 17 backward K1, 1 K2 and 8 each of K3-K5; the step-0 loss
+   less the aux loss within 1.0 of ln 32000 and the loss falling; its
+   median step wall, tokens/s, peak memory, aux loss and the choices each
+   layer dropped by capacity at step 0; (b) moe_ffn's index-form dispatch
+   against its dense one-hot plain version at E 1024, F 4096, 8 experts,
+   1,024 tokens, in f32 and bf16: routing equal, y and every gradient
+   within a stated tolerance of its largest magnitude, two forwards the
+   same bits; (c) one f32 MoE step at full width, batch 1, seq 256, card vs
+   CPU: loss within 1e-4, each gradient within 1e-3 of its largest
+   magnitude, routing equal but at printed near-ties (4 f32 ulps); (d)
+   ``TPUTrainer`` of 2 worker actors of the local runtime on the card on
+   the dense flagship's loss_fn, batch 4 x seq 2048 a rank, 3 steps: the
+   ranks start from the driver's parameters, the loss falls, per step
+   exactly twice phase 5's launches, the step wall against phase 5's and
+   the gradient bytes through the store; then a killed worker and a
+   train() that recovers (retries 1); (e) the vision family at
+   VisionConfig()'s defaults through ``MeshTrainer``, 30 steps at batch
+   256 on the quadrant task drawn with numpy: the loss falls, its step
+   wall, and f32 logits card vs CPU.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -213,14 +237,18 @@ import torch
 import ray_tpu_torch as rt
 from ray_tpu_torch import metrics as rt_metrics
 from ray_tpu_torch._kernels import build
+from ray_tpu_torch._tree import tree_map
 from ray_tpu_torch.models import (
-    TransformerConfig, init_params, make_train_step, named_leaves,
-    to_compute,
+    TransformerConfig, VisionConfig, init_params, init_vision_params,
+    loss_fn, make_train_step, named_leaves, to_compute, vision_accuracy,
+    vision_apply, vision_loss,
 )
 from ray_tpu_torch.models import engine as engine_mod
+from ray_tpu_torch.models import moe_transformer as moe_tr
 from ray_tpu_torch.models import paged_engine as paged_mod
 from ray_tpu_torch.models import speculative
 from ray_tpu_torch.ops import attention, fused, paged_attention
+from ray_tpu_torch.parallel import moe as moe_mod
 from ray_tpu_torch.scheduler import kernel as sched
 from ray_tpu_torch.scheduler import reference as sched_ref
 from ray_tpu_torch.scheduler.dag import (
@@ -229,6 +257,7 @@ from ray_tpu_torch.scheduler.dag import (
 from ray_tpu_torch import serve
 from ray_tpu_torch.serve import LMBackend, ServeRequest, accept_batch
 from ray_tpu_torch.serve.master import MASTER_NAME
+from ray_tpu_torch.train import MeshTrainer, TPUTrainer
 
 # Flagship config (scripts/model_bench.py's decode benchmark) and engine.
 FLAGSHIP = dict(vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16,
@@ -1549,15 +1578,22 @@ def train_setup():
     return cfg, params, init_opt(params), train_step, batch
 
 
+def train_per_step(L: int, ranks: int = 1) -> dict:
+    """K1 (plain, residual, backward), K2 and K3-K5 launches of one train
+    step of an L-layer model through transformer._decoder, per rank."""
+    one = {"rms_norm": 1, "add_rms_norm": 2 * L,
+           "rms_norm_backward": 2 * L + 1, "softmax_xent": 1,
+           "flash_forward": L, "flash_backward_dq": L,
+           "flash_backward_dkv": L}
+    return {n: ranks * v for n, v in one.items()}
+
+
 def train_path(card: str) -> dict:
     log(f"phase 5: training path, {TRAIN_STEPS} train steps at the flagship "
         f"config, bf16, batch {TRAIN_B}, seq {TRAIN_T}, AdamW")
     cfg, params, opt, train_step, batch = train_setup()
     V, L = cfg.vocab_size, cfg.n_layers
-    per_step = {"rms_norm": 1, "add_rms_norm": 2 * L,
-                "rms_norm_backward": 2 * L + 1, "softmax_xent": 1,
-                "flash_forward": L, "flash_backward_dq": L,
-                "flash_backward_dkv": L}
+    per_step = train_per_step(L)
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
     torch.cuda.synchronize()
@@ -2246,40 +2282,58 @@ def train_breakdown(card: str, step_ms: float) -> None:
     behind a sleep (device time back to back, against the median wall of
     phase 5) and one step under torch.profiler, its kernels summed by
     name."""
-    from torch.profiler import ProfilerActivity, profile
-
     _, params, opt, train_step, batch = train_setup()
     dev_ms = device_ms("train step", lambda: train_step(params, opt, batch),
                        [()], 2, sleep_cycles=2_000_000_000)
     log(f"  train step device time {dev_ms:.3f} ms back to back vs "
         f"{step_ms:.3f} ms wall: card busy {dev_ms / step_ms:.1%} "
         f"[{card}]")
+    profile_breakdown("train step", lambda: train_step(params, opt, batch),
+                      card)
+
+
+# Kernel families of a train step's device time, by a piece of their names.
+STEP_GROUPS = {"flash attention K3-K5": ("flash_",),
+               "RMSNorm K1 (forward, residual form, backward)":
+                   ("rms_norm",),
+               "cross-entropy K2": ("xent_kernel",),
+               "cuBLAS matmuls": ("nvjet", "gemm", "sm90_", "cutlass"),
+               "memcpy, memset": ("Memcpy", "Memset")}
+
+
+def profile_breakdown(what: str, fn, card: str, groups=None,
+                      ops: int = 0) -> None:
+    """One call of fn() under torch.profiler, its device time summed by
+    kernel family (``groups``, default STEP_GROUPS) and its largest
+    kernels; with ``ops``, also the ``ops`` aten ops whose own launches
+    took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = groups or STEP_GROUPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train_step(params, opt, batch)
+        fn()
         torch.cuda.synchronize()
     # Device-side events only: a CPU range (an aten op, an autograd node)
-    # also reports the device time of the kernels it launched.
+    # also reports the device time of the kernels it launched, and so does
+    # a user annotation on the device's timeline (the optimizer's
+    # "Optimizer.step#AdamW.step"), which would count them twice.
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(("Optimizer.", "ProfilerStep#"))),
                   key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     if total == 0:
         log("  torch.profiler recorded no device time: kernel breakdown "
             "not measured")
         return
-    groups = {"flash attention K3-K5": ("flash_",),
-              "RMSNorm K1 (forward, residual form, backward)": ("rms_norm",),
-              "cross-entropy K2": ("xent_kernel",),
-              "cuBLAS matmuls": ("nvjet", "gemm", "sm90_", "cutlass"),
-              "memcpy, memset": ("Memcpy", "Memset")}
     by_group = dict.fromkeys([*groups, "other PyTorch kernels"], 0.0)
     for name, ms, _ in rows:
         hit = [g for g, keys in groups.items()
                if any(k in name for k in keys)]
         by_group[hit[0] if hit else "other PyTorch kernels"] += ms
-    log(f"  torch.profiler, one train step: {total:.3f} ms of device time "
+    log(f"  torch.profiler, one {what}: {total:.3f} ms of device time "
         f"in {sum(r[2] for r in rows)} device events [{card}]")
     for group, ms in by_group.items():
         log(f"    {ms:9.3f} ms {ms / total:6.1%}  {group}")
@@ -2297,6 +2351,17 @@ def train_breakdown(card: str, step_ms: float) -> None:
     log("  largest kernels:")
     for name, ms, count in rows[:12]:
         log(f"    {ms:9.3f} ms {ms / total:6.1%} x{count:<5d} {name[:80]}")
+    if ops:
+        def own(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e3
+        cpu_ops = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CPU
+                          and own(e) > 0), key=lambda e: -own(e))
+        log("  aten ops by the device time of their own launches:")
+        for e in cpu_ops[:ops]:
+            log(f"    {own(e):9.3f} ms {own(e) / total:6.1%} x{e.count:<5d} "
+                f"{e.key[:80]}")
 
 
 # ------------------------------------------- phase 8: the placement passes
@@ -3250,7 +3315,7 @@ def serve_checks(params, cfg, main: dict, paged: dict, direct_growth: int,
         f"(+{paged_growth / 2**20:.1f} MiB): 16 shared-prefix requests "
         f"equal the contiguous engine's tokens; served per backend "
         f"{per_backend}; paged batches {pprobe.batches}; launches (two pump "
-        f"threads, counters not atomic: each above 0) K6 "
+        f"threads: each above 0) K6 "
         f"{launches['decode_attention']}, K7 "
         f"{launches['paged_decode_attention']}; delete_backend closed the "
         f"paged replica and freed {paged_freed / 2**20:.1f} MiB (its pool "
@@ -4320,6 +4385,442 @@ def operator_path(main: dict, card: str) -> None:
     log(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ------------------ phase 13: the train library and single-device models
+
+# The MoE flagship: FLAGSHIP's widths and depth, MoETransformerConfig's
+# defaults (8 experts, top 2, capacity 1.25, aux weight 0.01), each expert
+# a FLAGSHIP-wide SwiGLU. MOE_B is the batch of its train step: TRAIN_B,
+# cut only if memory bounds the step (the width and depth never are).
+MOE = dict(n_experts=8, top_k=2, capacity_factor=1.25, aux_loss_weight=0.01)
+MOE_B = TRAIN_B
+# (b): moe_ffn against its dense plain version at a size the dense
+# one-hot dispatch fits.
+MOE_CHECK_B, MOE_CHECK_T = 2, 512
+# (d): TPUTrainer's ranks, each at phase 5's tokens per step halved.
+TT_WORKERS, TT_B, TT_STEPS = 2, 4, 3
+# (e): the vision family at VisionConfig()'s defaults, trained through
+# MeshTrainer on the quadrant task.
+VIS_STEPS, VIS_B = 30, 256
+# Where phase 13 runs: the card (a CPU rehearsal sets "cpu", with the
+# kernels' plain versions counting launches).
+TL_DEVICE = "cuda"
+
+
+def tl_gen(seed: int) -> torch.Generator:
+    return torch.Generator(device=TL_DEVICE).manual_seed(seed)
+
+
+def check_step_counts(what: str, seen: dict, want: dict) -> dict:
+    now = read_counts()
+    got = {n: now[n] - seen[n] for n in now}
+    want = {n: want.get(n, 0) for n in now}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return now
+
+
+# A MoE step's kernel families: the dense step's, and the index form's
+# gathers and scatters, and AdamW's fused multi-tensor kernels.
+MOE_GROUPS = {**STEP_GROUPS,
+              "indexing (gathers, scatters, their sorts)":
+                  ("index", "scatter", "gather", "Sort", "sort"),
+              "AdamW (multi_tensor_apply)": ("multi_tensor_apply",)}
+
+
+class RoutingProbe:
+    """Wraps moe_transformer.moe_ffn to keep each layer's routing (the
+    index form's own, moe_ffn_routed), while it is installed."""
+
+    def __init__(self):
+        self.layers = []
+        self.orig = moe_tr.moe_ffn
+
+    def __enter__(self):
+        def recording(x, params, cfg):
+            y, aux, r = moe_mod.moe_ffn_routed(x, params, cfg)
+            self.layers.append(r)
+            return y, aux
+        moe_tr.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe_tr.moe_ffn = self.orig
+
+
+def moe_train(card: str) -> dict:
+    """(a) The MoE flagship's train step at full width and depth."""
+    cfg = moe_tr.MoETransformerConfig(dtype=torch.bfloat16, **FLAGSHIP,
+                                      **MOE)
+    L, V = cfg.n_layers, cfg.vocab_size
+    log(f"phase 13 (a): MoE train step at the flagship's widths and depth "
+        f"({L} layers, d_model {cfg.d_model}, {cfg.n_experts} experts of "
+        f"d_ff {cfg.d_ff}, top {cfg.top_k}, capacity {cfg.capacity_factor}),"
+        f" bf16, f32 params, batch {MOE_B}, seq {TRAIN_T}, AdamW (weight "
+        f"decay 1e-4), {TRAIN_STEPS} steps")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = moe_tr.init_params(tl_gen(SEED + 20), cfg, device=TL_DEVICE)
+    n_params = sum(t.numel() for t in named_leaves(params).values())
+    init_opt, train_step = moe_tr.make_train_step(cfg)
+    opt = init_opt(params)
+    if opt.param_groups[0]["weight_decay"] != 1e-4:
+        raise AssertionError("MoE AdamW weight decay is not optax's 1e-4")
+    rng = np.random.default_rng(SEED + 21)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, V, (MOE_B, TRAIN_T + 1))).to(TL_DEVICE)}
+    per_step = train_per_step(L)
+    losses, auxes, walls, dropped = [], [], [], None
+    torch.cuda.synchronize()
+    reset_counts()
+    seen = read_counts()
+    for step in range(TRAIN_STEPS):
+        with RoutingProbe() as probe:
+            t0 = time.perf_counter()
+            params, opt, loss = train_step(params, opt, batch)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        seen = check_step_counts(f"(a) MoE train step {step}", seen,
+                                 per_step)
+        auxes.append(sum(r.aux.item() for r in probe.layers))
+        if step == 0:
+            dropped = [int((~r.in_cap).sum()) for r in probe.layers]
+            tokens_out = [int((~r.in_cap).all(1).sum())
+                          for r in probe.layers]
+            capacity = probe.layers[0].capacity
+        log(f"  step {step}: loss {losses[-1]:.6f} (aux {auxes[-1]:.6f}), "
+            f"{walls[-1]:.3f} ms wall, launches as per step {per_step}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    ln_v = math.log(V)
+    ce0 = losses[0] - auxes[0]
+    if not (math.isfinite(losses[0]) and abs(ce0 - ln_v) < 1.0):
+        raise AssertionError(f"(a) step-0 loss minus aux {ce0} is not "
+                             f"within 1.0 of ln({V}) = {ln_v:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) MoE loss did not fall: {losses}")
+    step_ms = float(np.median(walls))
+    tokens = MOE_B * TRAIN_T
+    log(f"  {n_params:,} parameters; losses {losses}; step-0 loss minus aux "
+        f"{ce0:.6f} (ln {V} = {ln_v:.4f}); aux a step {auxes}")
+    log(f"  capacity {capacity} slots an expert; step 0's (token, k) "
+        f"choices dropped by capacity, per layer, of {tokens * cfg.top_k}: "
+        f"{dropped}; tokens with both choices dropped: {tokens_out}")
+    log(f"  MoE train step: median {step_ms:.3f} ms wall over {TRAIN_STEPS} "
+        f"steps (first {walls[0]:.3f} ms), {tokens / step_ms * 1e3:.1f} "
+        f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB "
+        f"({(peak - base) / 2 ** 30:.2f} GiB over the "
+        f"{base / 2 ** 30:.2f} GiB held before the phase) [{card}]")
+
+    def step():
+        train_step(params, opt, batch)
+
+    syncs = count_syncs(step)
+    dev_ms = device_ms("MoE train step", step, [()], 2,
+                       sleep_cycles=2_000_000_000)
+    log(f"  MoE train step: {syncs} host syncs a step (torch's sync debug "
+        f"mode); device time {dev_ms:.3f} ms back to back vs {step_ms:.3f} "
+        f"ms wall: card busy {dev_ms / step_ms:.1%} [{card}]")
+    profile_breakdown("MoE train step", step, card, MOE_GROUPS, ops=12)
+    del params, opt, batch
+    gc.collect()
+    return {"step_ms": step_ms, "walls": walls, "losses": losses,
+            "peak_gib": peak / 2 ** 30, "dropped": dropped,
+            "launches": launches}
+
+
+def moe_vs_dense(card: str) -> None:
+    """(b) moe_ffn against _moe_ffn_dense_ref on the card: routing equal,
+    y and every gradient within a tolerance of its largest magnitude (f32
+    1e-5: the products are the same, but the dense einsums sum the K terms
+    and the zeros in other orders, with FMAs; bf16 2^-7: one bf16 rounding
+    of a gate's gradient can fall on either side); the same forward twice,
+    the same bits."""
+    log(f"phase 13 (b): moe_ffn (index form) vs its dense plain version on "
+        f"the card, E {FLAGSHIP['d_model']}, F {FLAGSHIP['d_ff']}, N "
+        f"{MOE['n_experts']}, B {MOE_CHECK_B}, T {MOE_CHECK_T}")
+    # The flagship's capacity factor in both dtypes, and 1.0, at which
+    # some choices must drop.
+    for dt, tol, cf in ((torch.float32, 1e-5, MOE["capacity_factor"]),
+                        (torch.bfloat16, 2 ** -7, MOE["capacity_factor"]),
+                        (torch.float32, 1e-5, 1.0)):
+        cfg = moe_mod.MoEConfig(d_model=FLAGSHIP["d_model"],
+                                d_ff=FLAGSHIP["d_ff"], dtype=dt,
+                                **{**MOE, "capacity_factor": cf})
+        base = moe_mod.init_moe_params(tl_gen(SEED + 23), cfg,
+                                       device=TL_DEVICE)
+        g = tl_gen(SEED + 24)
+        x = torch.randn(MOE_CHECK_B, MOE_CHECK_T, cfg.d_model, generator=g,
+                        device=TL_DEVICE).to(dt)
+        gy = torch.randn(x.shape, generator=g, device=TL_DEVICE)
+        outs = []
+        for fn in (moe_mod.moe_ffn_routed, moe_mod._moe_ffn_dense_ref):
+            p = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+            xx = x.clone().requires_grad_(True)
+            y, aux, r = fn(xx, p, cfg)
+            ((y.float() * gy).sum() + aux).backward()
+            outs.append((y.detach(), aux.detach(), r,
+                         {"x": xx.grad, **{k: v.grad for k, v in p.items()}}))
+        (y, aux, r, grads), (ry, raux, rr, rgrads) = outs
+        for field in ("expert_idx", "position", "in_cap"):
+            if not torch.equal(getattr(r, field), getattr(rr, field)):
+                raise AssertionError(f"(b) {dt}: routing {field} differs "
+                                     f"from the dense version's")
+        if cf == 1.0 and r.in_cap.all():
+            raise AssertionError("(b) capacity factor 1.0 dropped nothing")
+        worst = {}
+        for name, got, want in [("y", y, ry), ("aux", aux, raux)] + [
+                (k, grads[k], rgrads[k]) for k in grads]:
+            scale = want.float().abs().max().item()
+            err = max_err(got, want)
+            if not torch.isfinite(got.float()).all() or err > tol * scale:
+                raise AssertionError(f"(b) {dt} {name}: max_abs_err {err} "
+                                     f"above {tol} x {scale}")
+            worst[name] = err / max(scale, 1e-30)
+        with torch.no_grad():
+            y1, a1 = moe_mod.moe_ffn(x, base, cfg)
+            y2, a2 = moe_mod.moe_ffn(x, base, cfg)
+        if not (torch.equal(y1, y2) and torch.equal(a1, a2)):
+            raise AssertionError(f"(b) {dt}: two forwards differ")
+        # The backward's bits twice (reported: gathers add at most K terms
+        # into a row).
+        p2 = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+        y3, a3 = moe_mod.moe_ffn(x, p2, cfg)
+        ((y3.float() * gy).sum() + a3).backward()
+        same_bwd = all(torch.equal(p2[k].grad, grads[k]) for k in p2)
+        log(f"  {str(dt)[6:]}, capacity factor {cf}: routing equal "
+            f"({int((~r.in_cap).sum())} of "
+            f"{r.in_cap.numel()} choices dropped at capacity "
+            f"{r.capacity}); errors / largest magnitude "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f" (tolerance {tol:.2e}); two forwards the same bits; the "
+            f"backward's bits twice {'the same' if same_bwd else 'differ'}")
+
+
+def moe_card_vs_cpu(card: str) -> None:
+    """(c) One f32 MoE train step's loss and gradients at full width (batch
+    1, seq 256), card vs CPU: the loss within 1e-4, each gradient within
+    1e-3 of its largest magnitude (phase 6's tolerances). Routing must be
+    equal, but where a token's k-th and (k+1)-th router probabilities lie
+    within 4 f32 ulps on either side: such places are printed."""
+    log("phase 13 (c): one f32 MoE train step at full width, batch 1, seq "
+        "256, card vs CPU")
+    cfg = moe_tr.MoETransformerConfig(dtype=torch.float32, **FLAGSHIP,
+                                      **MOE)
+    K = cfg.top_k
+    gpu = moe_tr.init_params(tl_gen(SEED + 25), cfg, device=TL_DEVICE)
+    cpu = tree_map(lambda t: t.detach().cpu(), gpu)
+    tokens = np.random.default_rng(SEED + 26).integers(
+        0, cfg.vocab_size, (1, 257))
+    runs = []
+    for params in (gpu, cpu):
+        for t in named_leaves(params).values():
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        with RoutingProbe() as probe:
+            loss = moe_tr.loss_fn(params, {"tokens": torch.from_numpy(
+                tokens)}, cfg)
+            loss.backward()
+        grads = {name: t.grad.float().cpu()
+                 for name, t in named_leaves(params).items()}
+        runs.append((loss.item(), grads, probe.layers,
+                     time.perf_counter() - t0))
+    (gl, ggrads, groute, gs), (cl, cgrads, croute, cs) = runs
+    near = []
+    for i, (a, b) in enumerate(zip(groute, croute)):
+        sa = a.expert_idx.cpu().sort(-1).values
+        sb = b.expert_idx.sort(-1).values
+        rows = (sa != sb).any(-1).nonzero().flatten().tolist()
+        for row in rows:
+            gaps = []
+            for probs in (a.probs[row].cpu(), b.probs[row]):
+                top = probs.sort(descending=True).values
+                gaps.append((top[K - 1] - top[K]).item()
+                            / torch.finfo(torch.float32).eps
+                            / top[K - 1].item())
+            if min(gaps) > 4:
+                raise AssertionError(f"(c) layer {i} token {row}: experts "
+                                     f"{sa[row].tolist()} on the card, "
+                                     f"{sb[row].tolist()} on the CPU, top-k "
+                                     f"margins {gaps} ulps")
+            near.append((i, row, gaps))
+            log(f"  layer {i} token {row}: experts differ at a near-tie "
+                f"(margins {gaps[0]:.2f} / {gaps[1]:.2f} f32 ulps)")
+        if not rows:
+            for field in ("position", "in_cap"):
+                if not torch.equal(getattr(a, field).cpu(),
+                                   getattr(b, field)):
+                    raise AssertionError(f"(c) layer {i}: {field} differs")
+    worst = 0.0
+    for name, want in cgrads.items():
+        got = ggrads[name]
+        scale = want.abs().max().item()
+        err = max_err(got, want)
+        if not torch.isfinite(got).all() or err > 1e-3 * scale:
+            raise AssertionError(f"(c) grad {name}: card vs CPU max_abs_err "
+                                 f"{err} above 1e-3 x {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    if abs(gl - cl) > 1e-4 or not math.isfinite(gl):
+        raise AssertionError(f"(c) MoE loss card {gl} vs CPU {cl}")
+    log(f"  loss card {gl:.7f} CPU {cl:.7f} (diff {abs(gl - cl):.2e}); "
+        f"routing equal in all {len(groute)} layers but {len(near)} "
+        f"near-tie places; every gradient within {worst:.2e} of its largest "
+        f"magnitude; {gs:.1f} s on the card, {cs:.1f} s on the CPU")
+    del gpu, cpu
+    gc.collect()
+
+
+def tpu_trainer_path(train: dict, card: str) -> None:
+    """(d) TPUTrainer on the card: TT_WORKERS worker actors (CPU shares,
+    no GPU share) of the local runtime on the dense flagship's loss_fn."""
+    cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
+    L = cfg.n_layers
+    log(f"phase 13 (d): TPUTrainer on the card, {TT_WORKERS} workers "
+        f"(num_cpus_per_worker=1), the dense flagship bf16, batch {TT_B} x "
+        f"seq {TRAIN_T} a rank, AdamW, {TT_STEPS} steps")
+    sums = []
+
+    def init_fn(gen):
+        params = init_params(gen, cfg, device=TL_DEVICE)
+        sums.append([t.double().sum().item()
+                     for t in named_leaves(params).values()])
+        return params
+
+    def data_creator(rank, world, config):
+        rng = np.random.default_rng(SEED + 30 + rank)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TT_B, TRAIN_T + 1))).to(TL_DEVICE)
+        while True:
+            yield {"tokens": tokens}
+
+    rt.init(num_cpus=4, num_gpus=1)
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        trainer = TPUTrainer(init_fn, lambda p, b: loss_fn(p, b, cfg),
+                             data_creator, num_workers=TT_WORKERS,
+                             num_cpus_per_worker=1, max_retries=1,
+                             device=TL_DEVICE)
+        start_s = time.perf_counter() - t0
+        if len(sums) != 1 + TT_WORKERS or any(s != sums[0] for s in sums):
+            raise AssertionError("(d) the ranks' initial parameters differ "
+                                 "from the driver's")
+        grad_bytes = sum(t.numel() * t.element_size()
+                         for t in named_leaves(trainer.params).values())
+        per_step = train_per_step(L, TT_WORKERS)
+        losses, walls = [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        seen = read_counts()
+        for step in range(TT_STEPS):
+            t0 = time.perf_counter()
+            stats = trainer.train(num_steps=1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(stats["loss"])
+            seen = check_step_counts(f"(d) TPUTrainer step {step}", seen,
+                                     per_step)
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"(d) TPUTrainer loss did not fall: "
+                                 f"{losses}")
+        step_ms = float(np.median(walls))
+        log(f"  start (driver and {TT_WORKERS} ranks built from seed "
+            f"{SEED}, the same parameters in each) {start_s:.3f} s; losses "
+            f"{losses}; launches as per step {per_step} (each rank phase "
+            f"5's)")
+        log(f"  TPUTrainer step: median {step_ms:.3f} ms wall over "
+            f"{TT_STEPS} steps ({TT_WORKERS * TT_B * TRAIN_T} tokens, "
+            f"{TT_WORKERS * TT_B * TRAIN_T / step_ms * 1e3:.1f} tokens/s) "
+            f"against phase 5's {train['step_ms']:.3f} ms for the same "
+            f"tokens in one process; gradients through the store "
+            f"{grad_bytes / 1e6:.1f} MB a rank a step [{card}]")
+        rt.kill(trainer.workers[0])
+        t0 = time.perf_counter()
+        stats = trainer.train(num_steps=1)
+        heal_s = time.perf_counter() - t0
+        if stats["retries"] != 1 or trainer.step != TT_STEPS + 1 or \
+                not math.isfinite(stats["loss"]):
+            raise AssertionError(f"(d) after kill(): {stats}")
+        log(f"  a worker killed: the next train() rebuilt the workers and "
+            f"stepped (retries {stats['retries']}, loss "
+            f"{stats['loss']:.6f}) in {heal_s:.3f} s")
+    finally:
+        if trainer is not None:
+            trainer.shutdown()
+        rt.shutdown()
+    gc.collect()
+
+
+def quadrant_batches(cfg, n: int, count: int, seed: int) -> list:
+    """tests/test_vision.py's task drawn with numpy: the label is the
+    quadrant that holds a bright square; on the card."""
+    rng = np.random.default_rng(seed)
+    size, half = cfg.image_size, cfg.image_size // 2
+    yy, xx = np.mgrid[:size, :size]
+    out = []
+    for _ in range(count):
+        labels = rng.integers(0, 4, n)
+        imgs = 0.1 * rng.standard_normal(
+            (n, size, size, cfg.in_channels)).astype(np.float32)
+        y0 = (labels // 2 * half)[:, None, None]
+        x0 = (labels % 2 * half)[:, None, None]
+        inside = ((yy >= y0) & (yy < y0 + half) & (xx >= x0)
+                  & (xx < x0 + half))
+        imgs[inside] = 1.0
+        out.append({"images": torch.from_numpy(imgs).to(TL_DEVICE),
+                    "labels": torch.from_numpy(labels).to(TL_DEVICE)})
+    return out
+
+
+def vision_path(card: str) -> None:
+    """(e) The vision family through MeshTrainer on the card, and its f32
+    logits card vs CPU (within atol = rtol = 1e-4: cuDNN's convolutions and
+    the CPU's sum in other orders through 13 convolutions and GroupNorms)."""
+    cfg = VisionConfig()
+    log(f"phase 13 (e): vision, VisionConfig() ({cfg.image_size}x"
+        f"{cfg.image_size}x{cfg.in_channels}, widths {cfg.widths}, "
+        f"{cfg.blocks_per_stage} blocks a stage, {cfg.num_classes} classes)"
+        f" through MeshTrainer, {VIS_STEPS} steps at batch {VIS_B}, AdamW "
+        f"3e-3")
+    data = quadrant_batches(cfg, VIS_B, VIS_STEPS + 1, SEED + 40)
+    trainer = MeshTrainer(
+        lambda gen: init_vision_params(gen, cfg, device=TL_DEVICE),
+        lambda p, b: vision_loss(p, b, cfg), learning_rate=3e-3,
+        seed=SEED + 41, device=TL_DEVICE)
+    first = trainer.train_step(data[0])
+    stats = trainer.train(iter(data[1:VIS_STEPS]), VIS_STEPS - 1)
+    last = stats["last_loss"]
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"(e) vision loss did not fall: {first} -> "
+                             f"{last}")
+    held = data[VIS_STEPS]
+    acc = vision_accuracy(trainer.state.params, held, cfg).item()
+    with torch.no_grad():
+        gpu = vision_apply(trainer.state.params, held["images"][:64], cfg)
+        cpu_params = tree_map(lambda t: t.detach().cpu(),
+                              trainer.state.params)
+        cpu = vision_apply(cpu_params, held["images"][:64].cpu(), cfg)
+    check_close("(e) f32 vision logits, card vs CPU", gpu.cpu(), cpu,
+                atol=1e-4, rtol=1e-4)
+    log(f"  loss {first:.6f} -> {last:.6f} over {VIS_STEPS} steps; "
+        f"{stats['time_s'] / (VIS_STEPS - 1) * 1e3:.3f} ms a step (host "
+        f"clock over {VIS_STEPS - 1} steps ending in a synchronize); "
+        f"held-out accuracy {acc:.4f} [{card}]")
+
+
+def train_library_path(train: dict, card: str) -> dict:
+    t_phase = time.perf_counter()
+    out = moe_train(card)
+    moe_vs_dense(card)
+    moe_card_vs_cpu(card)
+    tpu_trainer_path(train, card)
+    vision_path(card)
+    log(f"  phase 13 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -4367,6 +4868,7 @@ def main() -> int:
     serve_path(params, cfg, main, paged, direct_growth, card)
     cluster_path(params, cfg, main, card)
     operator_path(main, card)
+    train_library_path(train, card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import Device, default_device
+from .._tree import tree_map
 from ..ops.attention import flash_attention
 from ..ops.fused import add_rms_norm, rms_norm, softmax_cross_entropy
 
@@ -92,16 +93,16 @@ def params_from_numpy(tree: Params, *, device: Device = None,
                       dtype: torch.dtype = torch.float32) -> Params:
     """The JAX package's parameter pytree, given as numpy arrays (or
     anything ``np.asarray`` takes), as the port's parameters: same keys,
-    same [L, ...] stacking and [in, out] layout, stored in ``dtype``."""
+    same [L, ...] stacking and [in, out] layout, stored in ``dtype``.
+    Dicts, lists and tuples are walked (the MoE model's nested ``"moe"``
+    dict, the vision model's lists of blocks)."""
     dev = default_device(device)
 
     def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
         arr = np.asarray(node, dtype=np.float32)
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
 
-    return conv(tree)
+    return tree_map(conv, tree)
 
 
 def to_compute(params: Params, cfg: TransformerConfig,
@@ -164,21 +165,25 @@ def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
 
 def _decoder(x: torch.Tensor, layers: List[Params], final_norm: torch.Tensor,
              eps: float, attend: Callable[[int, Params, torch.Tensor],
-                                          torch.Tensor]) -> torch.Tensor:
+                                          torch.Tensor],
+             ffn: Callable[[torch.Tensor, Params], torch.Tensor] = _mlp,
+             ) -> torch.Tensor:
     """The layer loop that training, prefill and decode share (the JAX
-    ``block``: h = x + attn(norm(x)); x = h + mlp(norm(h)); then the final
+    ``block``: h = x + attn(norm(x)); x = h + ffn(norm(h)); then the final
     norm). x is the embedded input [.., E]; layers holds each layer's
     weights in the compute dtype; ``attend(i, layer, y)`` returns layer i's
-    attention output (after ``wo``) for its normed input y. Every residual
-    add is fused into the norm that follows it, so the loop is one plain
-    RMSNorm and 2L ``add_rms_norm``: 2L + 1 launches of kernel K1 on the
-    card, and no launch of an add. Returns the final norm's output."""
+    attention output (after ``wo``) for its normed input y, and
+    ``ffn(y, layer)`` its feed-forward output (the SwiGLU ``_mlp``, or the
+    MoE model's routed experts). Every residual add is fused into the norm
+    that follows it, so the loop is one plain RMSNorm and 2L
+    ``add_rms_norm``: 2L + 1 launches of kernel K1 on the card, and no
+    launch of an add. Returns the final norm's output."""
     y = _rms_norm(x, layers[0]["attn_norm"] if layers else final_norm, eps)
     for i, layer in enumerate(layers):
         h, y = _add_rms_norm(x, attend(i, layer, y), layer["mlp_norm"], eps)
         nxt = (layers[i + 1]["attn_norm"] if i + 1 < len(layers)
                else final_norm)
-        x, y = _add_rms_norm(h, _mlp(y, layer), nxt, eps)
+        x, y = _add_rms_norm(h, ffn(y, layer), nxt, eps)
     return y
 
 
@@ -189,20 +194,33 @@ def _no_parallelism(mesh, num_microbatches: int = 0) -> None:
     if mesh is not None or num_microbatches > 0:
         raise NotImplementedError(
             "a mesh and pipelined microbatches are not ported yet; they come "
-            "with the parallelism slice of ROADMAP.md")
+            "with the parallelism slice (A7b) of ROADMAP.md")
 
 
 def named_leaves(tree: Params, prefix: str = "") -> Dict[str, Any]:
-    """The leaves of a nested dict by dotted name (``"layers.wq"``), in the
-    dict's order; any leaf type, so a gradient tree of numpy arrays walks
-    the same way."""
+    """The leaves of a tree of dicts, lists and tuples by dotted name
+    (``"layers.wq"``, ``"stage0.1.conv1"``), in order; any leaf type, so a
+    gradient tree of numpy arrays walks the same way."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree))
     out = {}
-    for key, val in tree.items():
-        if isinstance(val, dict):
+    for key, val in items:
+        if isinstance(val, (dict, list, tuple)):
             out.update(named_leaves(val, f"{prefix}{key}."))
         else:
-            out[prefix + key] = val
+            out[f"{prefix}{key}"] = val
     return out
+
+
+def unbind_layers(layers: Params, n_layers: int) -> List[Params]:
+    """The stacked [L, ...] layer tree (nested dicts) as L per-layer trees
+    of views. Unbinding each stack once lets the backward stack each
+    weight's L gradients in one op."""
+    if isinstance(layers, dict):
+        subs = {k: unbind_layers(v, n_layers) for k, v in layers.items()}
+        return [{k: sub[i] for k, sub in subs.items()}
+                for i in range(n_layers)]
+    return list(layers.unbind(0))
 
 
 def _attention(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
@@ -233,11 +251,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     embed = params["embed"].to(dt)
     x = embed[tokens]                                         # [B, T, E]
     positions = torch.arange(T, device=x.device)
-    names = list(params["layers"])
-    # unbind: the backward stacks each weight's L gradients in one op.
-    stacks = [params["layers"][k].unbind(0) for k in names]
-    layers = [{k: w.to(dt) for k, w in zip(names, weights)}
-              for weights in zip(*stacks)]
+    layers = [tree_map(lambda w: w.to(dt), layer)
+              for layer in unbind_layers(params["layers"], cfg.n_layers)]
     y = _decoder(x, layers, params["final_norm"], cfg.norm_eps,
                  lambda i, layer, y: _attention(y, layer, cfg, positions))
     return y @ embed.T
@@ -271,6 +286,14 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     same dict, the optimizer, and the loss before the update (detached).
     The parameters' ``.grad`` hold that step's gradients afterwards."""
     _no_parallelism(mesh, num_microbatches)
+    return adamw_train_step(lambda params, batch: loss_fn(params, batch, cfg),
+                            learning_rate, weight_decay=0.01)
+
+
+def adamw_train_step(loss: Callable[[Params, Dict[str, Any]], torch.Tensor],
+                     learning_rate: float, weight_decay: float):
+    """(init_opt, train_step) of ``make_train_step`` for any
+    ``loss(params, batch)`` and AdamW's weight decay."""
 
     def init_opt(params: Params) -> torch.optim.AdamW:
         leaves = list(named_leaves(params).values())
@@ -278,7 +301,7 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
             p.requires_grad_(True)
         return torch.optim.AdamW(leaves, lr=learning_rate,
                                  betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=0.01)
+                                 weight_decay=weight_decay)
 
     def train_step(params: Params, opt_state: torch.optim.AdamW,
                    batch: Dict[str, Any]):
@@ -289,9 +312,9 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
             raise ValueError("opt_state was not made by init_opt(params) for "
                              "these parameters")
         opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(params, batch, cfg)
-        loss.backward()
+        value = loss(params, batch)
+        value.backward()
         opt_state.step()
-        return params, opt_state, loss.detach()
+        return params, opt_state, value.detach()
 
     return init_opt, train_step

@@ -23,6 +23,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .._kernels import count_launch
+
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -226,7 +228,7 @@ def _decode_attention_cuda(q, k, v, lengths) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(
             f"decode_attention kernel launch failed: CUDA error {err}")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 
@@ -495,7 +497,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _launch_flash("flash_forward", 0, q, k, v, [q, k, v], [out, lse],
                   [q, k, v], causal)
-    flash_forward.launches += 1
+    count_launch(flash_forward)
     return out, lse
 
 
@@ -509,7 +511,7 @@ def flash_backward_dq(q, k, v, do, lse, dsum, causal: bool = True):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_flash("flash_backward_dq", 1, q, k, v, [q, k, v, do, lse, dsum],
                   [dq], [q, k, v, do], causal)
-    flash_backward_dq.launches += 1
+    count_launch(flash_backward_dq)
     return dq
 
 
@@ -524,7 +526,7 @@ def flash_backward_dkv(q, k, v, do, lse, dsum, causal: bool = True):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_flash("flash_backward_dkv", 2, q, k, v,
                   [q, k, v, do, lse, dsum], [dk, dv], [q, k, v, do], causal)
-    flash_backward_dkv.launches += 1
+    count_launch(flash_backward_dkv)
     return dk, dv
 
 

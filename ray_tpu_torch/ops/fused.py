@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .._kernels import count_launch
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
@@ -208,9 +210,9 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
     if err != 0:
         raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {err}")
     if a is None:
-        rms_norm.launches += 1
+        count_launch(rms_norm)
         return y
-    add_rms_norm.launches += 1
+    count_launch(add_rms_norm)
     return h, y
 
 
@@ -238,7 +240,7 @@ def _rms_norm_bwd_cuda(h: torch.Tensor, weight: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"rms_norm backward kernel launch failed: CUDA error {err}")
-    rms_norm.backward_launches += 1
+    count_launch(rms_norm, "backward_launches")
     return dx, dw
 
 
@@ -391,7 +393,7 @@ def _xent_cuda(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(
             f"softmax_cross_entropy kernel launch failed: CUDA error {err}")
-    softmax_cross_entropy.launches += 1
+    count_launch(softmax_cross_entropy)
     return out
 
 

@@ -28,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .._kernels import count_launch
 from .attention import (_DTYPES, _SMEM_LIMIT, _decode_split,
                         masked_gqa_attention)
 
@@ -168,7 +169,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths):
     if err != 0:
         raise RuntimeError(
             f"paged_decode_attention kernel launch failed: CUDA error {err}")
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 

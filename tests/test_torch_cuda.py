@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 edge shapes the smoke run does not reach (scalar-load path, wide rows, odd
 group sizes, strided cache views, ragged tiles, T != S), gradients through
-the kernels against the same on the CPU, and the engine on the card
-against the engine on the CPU.
+the kernels against the same on the CPU, the engine on the card against
+the engine on the CPU, and the MoE FFN, MoE and vision train steps and the
+trainers on the card.
 
 Every test needs an NVIDIA card and nvcc and skips without one. On a
 machine with a card (no JAX needed there):
@@ -1039,3 +1040,155 @@ def test_cli_started_head_places_on_the_card(dev, tmp_path):
         stop = cli("stop")
     assert stop.returncode == 0 and "stopped" in stop.stdout
     assert not os.path.exists(env["RAY_TPU_TORCH_SESSION_FILE"])
+
+
+# ------------------------ the train library and single-device models (A7a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_matches_its_dense_version(dev, dtype):
+    """The index-form moe_ffn against _moe_ffn_dense_ref on the card, with
+    choices dropped (capacity factor 1.0): routing equal; y and every
+    gradient within 1e-5 (f32) or 2^-7 (bf16) of its largest magnitude;
+    two forwards the same bits."""
+    from ray_tpu_torch.parallel import moe
+
+    cfg = moe.MoEConfig(d_model=256, d_ff=512, n_experts=8, top_k=2,
+                        capacity_factor=1.0, dtype=dtype)
+    base = moe.init_moe_params(_gen(0), cfg, device=dev)
+    x = torch.randn(2, 128, 256, generator=_gen(1), device=dev).to(dtype)
+    gy = torch.randn(x.shape, generator=_gen(2), device=dev)
+    outs = []
+    for fn in (moe.moe_ffn_routed, moe._moe_ffn_dense_ref):
+        p = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+        xx = x.clone().requires_grad_(True)
+        y, aux, r = fn(xx, p, cfg)
+        ((y.float() * gy).sum() + aux).backward()
+        outs.append((r, [y, aux, xx.grad] + [p[k].grad for k in sorted(p)]))
+    (r, got), (rr, want) = outs
+    for field in ("expert_idx", "position", "in_cap"):
+        assert torch.equal(getattr(r, field), getattr(rr, field)), field
+    assert not r.in_cap.all()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+    with torch.no_grad():
+        assert torch.equal(moe.moe_ffn(x, base, cfg)[0],
+                           moe.moe_ffn(x, base, cfg)[0])
+
+
+def _launch_counts():
+    return (fused.rms_norm.launches, fused.add_rms_norm.launches,
+            fused.rms_norm.backward_launches,
+            fused.softmax_cross_entropy.launches,
+            attention.flash_forward.launches,
+            attention.flash_backward_dq.launches,
+            attention.flash_backward_dkv.launches)
+
+
+def test_moe_train_step_on_card_matches_cpu_and_launches_the_kernels(dev):
+    """A 2-layer f32 MoE transformer (head_dim 64): one train step's loss
+    and gradients on the card within 1e-4 and 1e-3 of each gradient's
+    largest magnitude of the CPU's, through K1 (1 + 4 forward, 5 backward),
+    K2 (1) and K3-K5 (2 each); a bf16 step's loss falls."""
+    import dataclasses
+
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.models import moe_transformer as mt
+    from ray_tpu_torch.models.transformer import named_leaves
+
+    cfg = mt.MoETransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                                  n_heads=4, n_kv_heads=4, d_ff=512,
+                                  max_seq_len=128, n_experts=4, top_k=2,
+                                  dtype=torch.float32)
+    gpu = mt.init_params(_gen(5), cfg, device=dev)
+    cpu = tree_map(lambda t: t.cpu(), gpu)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 512, (2, 65)))
+    runs = []
+    for params in (gpu, cpu):
+        for t in named_leaves(params).values():
+            t.requires_grad_(True)
+        before = _launch_counts()
+        loss = mt.loss_fn(params, {"tokens": tokens}, cfg)
+        loss.backward()
+        after = _launch_counts()
+        runs.append((loss.item(), {n: t.grad.cpu() for n, t in
+                                   named_leaves(params).items()},
+                     tuple(b - a for a, b in zip(before, after))))
+    (gl, gg, gc), (cl, cg, cc) = runs
+    assert gc == (1, 4, 5, 1, 2, 2, 2) and cc == (0,) * 7
+    assert abs(gl - cl) < 1e-4
+    for name, want in cg.items():
+        err = (gg[name] - want).abs().max().item()
+        assert err <= 1e-3 * want.abs().max().item(), name
+
+    bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params = mt.init_params(_gen(7), bcfg, device=dev)
+    init_opt, train_step = mt.make_train_step(bcfg)
+    opt = init_opt(params)
+    losses = [train_step(params, opt, {"tokens": tokens})[2].item()
+              for _ in range(3)]
+    assert losses[-1] < losses[0]
+
+
+def test_vision_step_on_card_matches_cpu(dev):
+    """The vision family at the reference test's config (stride-2 blocks,
+    projections) on the card: f32 logits and the loss within 1e-4 of the
+    CPU's, and MeshTrainer's loss falls over 10 steps."""
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.models import (VisionConfig, init_vision_params,
+                                      vision_apply, vision_loss)
+    from ray_tpu_torch.train import MeshTrainer
+
+    cfg = VisionConfig(image_size=16, in_channels=1, num_classes=4,
+                       widths=(8, 16), blocks_per_stage=2, groups=4)
+    rng = np.random.default_rng(8)
+    batch = {"images": torch.from_numpy(rng.standard_normal(
+        (32, 16, 16, 1)).astype(np.float32)),
+        "labels": torch.from_numpy(rng.integers(0, 4, 32))}
+    params = init_vision_params(_gen(9), cfg, device=dev)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    torch.testing.assert_close(
+        vision_apply(params, batch["images"], cfg).cpu(),
+        vision_apply(cpu, batch["images"], cfg), atol=1e-4, rtol=1e-4)
+    trainer = MeshTrainer(lambda g: init_vision_params(g, cfg, device=dev),
+                          lambda p, b: vision_loss(p, b, cfg),
+                          learning_rate=3e-3, device=dev)
+    stats = [trainer.train_step(batch) for _ in range(10)]
+    assert stats[-1] < stats[0]
+
+
+def test_tpu_trainer_on_card_counts_each_rank_s_launches(dev):
+    """Two TPUTrainer workers on the card, a 1-layer flagship-shaped model:
+    a step counts exactly twice one rank's launches (the counters'
+    increments are atomic), and the loss falls."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import TransformerConfig, init_params, loss_fn
+    from ray_tpu_torch.train import TPUTrainer
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=1,
+                            n_heads=4, n_kv_heads=4, d_ff=512,
+                            max_seq_len=128)
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, 512, (2, 65))).to(dev)
+
+    def data(rank, world, config):
+        while True:
+            yield {"tokens": tokens}
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        t = TPUTrainer(lambda g: init_params(g, cfg, device=dev),
+                       lambda p, b: loss_fn(p, b, cfg), data, num_workers=2,
+                       device=dev)
+        before = _launch_counts()
+        losses = [t.train()["loss"] for _ in range(3)]
+        after = _launch_counts()
+        assert tuple(b - a for a, b in zip(before, after)) == tuple(
+            3 * 2 * n for n in (1, 2, 3, 1, 1, 1, 1))
+        assert losses[-1] < losses[0]
+        t.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()

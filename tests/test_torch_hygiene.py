@@ -22,11 +22,14 @@ import ray_tpu_torch
 import ray_tpu_torch.ops
 from ray_tpu_torch._kernels import build
 from ray_tpu_torch.models import TransformerConfig, init_params
-from ray_tpu_torch.models import engine, generate, paged_engine, transformer
+from ray_tpu_torch.models import (engine, generate, moe_transformer,
+                                  paged_engine, transformer, vision)
 from ray_tpu_torch.ops import attention, fused, paged_attention
+from ray_tpu_torch.parallel import init_moe_params
 from ray_tpu_torch.scheduler import kernel as sched
 from ray_tpu_torch.scheduler.dag import random_dag, uniform_cluster
 from ray_tpu_torch.serve import LMBackend
+from ray_tpu_torch.train import MeshTrainer, TPUTrainer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
@@ -200,6 +203,30 @@ _SCHED_ENTRY_POINTS = {
         np.array([[0, 5, 5], [0, 0, 0]], np.int64), **kw),
 }
 _ENTRY_POINTS.update(_SCHED_ENTRY_POINTS)
+
+
+def _tiny_moe():
+    return moe_transformer.MoETransformerConfig(
+        vocab_size=32, d_model=32, n_layers=1, n_heads=2, n_kv_heads=2,
+        d_ff=32, max_seq_len=16, n_experts=2, top_k=1)
+
+
+# The train library and the single-device models (each takes ``device``).
+_ENTRY_POINTS.update({
+    "init_moe_params": lambda: init_moe_params(torch.Generator(),
+                                               _tiny_moe().moe_cfg()),
+    "moe_init_params": lambda: moe_transformer.init_params(
+        torch.Generator(), _tiny_moe()),
+    "init_vision_params": lambda: vision.init_vision_params(
+        torch.Generator(), vision.VisionConfig()),
+    "vision_params_from_numpy": lambda: vision.vision_params_from_numpy(
+        {"stem": np.zeros((3, 3, 1, 8))}),
+    "MeshTrainer": lambda: MeshTrainer(lambda g: {"w": torch.zeros(2)},
+                                       lambda p, b: p["w"].sum()),
+    "TPUTrainer": lambda: TPUTrainer(lambda g: {"w": torch.zeros(2)},
+                                     lambda p, b: p["w"].sum(),
+                                     lambda rank, world, config: iter([])),
+})
 
 
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
@@ -524,3 +551,57 @@ def test_serve_package_exports_every_name_of_the_jax_serve_package():
                 "http_proxy", "metric", "config", "lm"):
         assert (ROOT / "ray_tpu_torch" / "serve" / f"{mod}.py").is_file()
     assert callable(ray_tpu_torch.metrics.serve_fleet_metrics)
+
+
+# The modules of the train library and the single-device models, one file
+# to one file with the JAX package's; the import probe and the source
+# checks above walk every file under ray_tpu_torch/, these included.
+_A7A_MODULES = ("train/__init__", "train/trainer", "train/mesh_trainer",
+                "parallel/__init__", "parallel/moe",
+                "models/moe_transformer", "models/vision")
+
+
+@pytest.mark.parametrize("module", _A7A_MODULES)
+def test_train_and_parallel_sources_are_checked(module):
+    path = ROOT / "ray_tpu_torch" / f"{module}.py"
+    assert path in PORT_FILES
+    assert (ROOT / "ray_tpu" / f"{module}.py").is_file()
+
+
+# What the JAX package's models, train and parallel packages export that
+# the port's do not: the meshes, shardings, collectives and the pipelined,
+# ring and Ulysses paths (names and submodules), which come with the
+# parallelism slice (A7b).
+_AWAITING_A7B = {
+    "ray_tpu.models": {"param_shardings", "vision_param_shardings"},
+    "ray_tpu.train": set(),
+    "ray_tpu.parallel": {
+        "MeshSpec", "make_mesh", "resolve_shard_map", "shard_map_compat",
+        "ring_attention", "ring_attention_sharded", "ulysses_attention",
+        "ulysses_attention_sharded", "gpipe", "gpipe_sharded",
+        "moe_param_shardings", "collectives", "mesh", "pipeline",
+        "ulysses"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_AWAITING_A7B))
+def test_models_train_and_parallel_export_what_the_jax_packages_do(name):
+    """Every public name of the JAX package's models, train and parallel
+    packages is the port's too, and each of their submodules has a file in
+    the port, but for the parallelism slice's, which are listed."""
+    import importlib
+    import types
+
+    jmod = importlib.import_module(name)
+    tmod = importlib.import_module(name.replace("ray_tpu", "ray_tpu_torch",
+                                                1))
+    tdir = ROOT / "ray_tpu_torch" / name.split(".")[1]
+    missing = set()
+    for n in _public(jmod):
+        val = getattr(jmod, n)
+        if isinstance(val, types.ModuleType):
+            if not ((tdir / f"{n}.py").is_file() or (tdir / n).is_dir()):
+                missing.add(n)
+        elif not hasattr(tmod, n):
+            missing.add(n)
+    assert missing == _AWAITING_A7B[name], sorted(missing)
