@@ -208,7 +208,39 @@ it fails:
    train() that recovers (retries 1); (e) the vision family at
    VisionConfig()'s defaults through ``MeshTrainer``, 30 steps at batch
    256 on the quadrant task drawn with numpy: the loss falls, its step
-   wall, and f32 logits card vs CPU.
+   wall, and f32 logits card vs CPU;
+14. meshes for training: one world of 2 rank processes sharing the card
+   (ray_tpu_torch.parallel.launch; gloo, each collective staged through
+   pinned host memory), layouts built one after another, each layout's
+   memory freed before the next: (a) f32 at the flagship's widths, depth 2,
+   batch 2, seq 256, TF32 off: one step of dp2, tp2, sp2 (ring attention)
+   and pp2 (2 microbatches), the loss and every gathered gradient within
+   1e-5 of its largest magnitude of one process on the card, and Ulysses
+   at [2, 256, 16, 64] against one flash_attention, forward and gradients;
+   (b) bf16 at the flagship's width and depth, phase 5's weights and batch,
+   3 AdamW steps: dp2 through MeshTrainer(mesh, param_shardings,
+   batch_spec=P("dp")), tp2, sp2 and pp2 (4 microbatches) through
+   make_train_step(cfg, mesh): each rank's launches a step exactly what
+   the layout's structure says (mesh_per_step), the losses within 2^-7 of
+   phase 5's, step wall, tokens/s, peak memory a rank and the bytes and
+   seconds of the host staging a step (sp2's batch is cut, and printed, if
+   the ring's saved scores would not fit); (c) the MoE flagship in the
+   layout moe_transformer.param_shardings gives (attention and experts
+   over tp2): first in f32 at depth 2, batch 2, seq 256, step 0's loss and
+   every gathered gradient within 1e-5 of one process's, routing equal,
+   and 3 AdamW steps' losses within 1e-5; then in bf16 from phase 13's
+   weights and batch, 3 steps: exact launches, each layer's step-0 routing
+   equal to one device's routing of the mesh's own layer input, against
+   one process layer 0's routing moved by bf16 rounding alone (no token's
+   top-K logit margin moved past what 2 ulps an input element can move
+   it) and each layer's drops apart by at most its changed choices, and
+   the losses within the larger of 2^-7 and one process's bf16-to-f32
+   gap a step (the parent runs phase 13's steps in f32 for it); (d) vision at VisionConfig() over dp2,
+   f32, cuDNN deterministic: loss and every gradient within 1e-5 of one
+   process taking the batch in the same two halves (and the distance to
+   its whole-batch gradients printed); (e) Ulysses in
+   bf16 at [8, 2048, 16, 64] over sp2: exactly one K3, K4 and K5 a rank,
+   out and gradients against one flash_attention.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -4429,16 +4461,21 @@ MOE_GROUPS = {**STEP_GROUPS,
 
 class RoutingProbe:
     """Wraps moe_transformer.moe_ffn to keep each layer's routing (the
-    index form's own, moe_ffn_routed), while it is installed."""
+    index form's own, moe_ffn_routed), while it is installed; with
+    ``keep_inputs``, also each layer's input and router."""
 
-    def __init__(self):
-        self.layers = []
+    def __init__(self, keep_inputs: bool = False):
+        self.layers, self.inputs, self.routers = [], [], []
+        self.keep = keep_inputs
         self.orig = moe_tr.moe_ffn
 
     def __enter__(self):
-        def recording(x, params, cfg):
-            y, aux, r = moe_mod.moe_ffn_routed(x, params, cfg)
+        def recording(x, params, cfg, *args, **kw):
+            y, aux, r = moe_mod.moe_ffn_routed(x, params, cfg, *args, **kw)
             self.layers.append(r)
+            if self.keep:
+                self.inputs.append(x.detach())
+                self.routers.append(params["router"].detach().clone())
             return y, aux
         moe_tr.moe_ffn = recording
         return self
@@ -4821,6 +4858,793 @@ def train_library_path(train: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------- phase 14: the mesh on the card
+
+# One world of MESH_RANKS processes sharing the card (gloo; collectives
+# staged through pinned host memory), started once by parallel.launch.
+MESH_RANKS = 2
+MESH_LAYOUTS = (("dp2", {"dp": 2}), ("tp2", {"tp": 2}), ("sp2", {"sp": 2}),
+                ("pp2", {"pp": 2}))
+# (a): f32 at the flagship's widths, depth 2, batch 2 x seq 256, pp with 2
+# microbatches; Ulysses at [B, T, H, D] = MESH_UL.
+MESH_F32_L, MESH_F32_B, MESH_F32_T, MESH_F32_MB = 2, 2, 256, 2
+MESH_UL = (2, 256, 16, 64)
+# (b), (c): 3 steps a layout from phases 5's and 13's weights and batches;
+# pp with 4 microbatches.
+MESH_STEPS, MESH_PP_MB = 3, 4
+# (b), (c): the bound on |sharded loss - single-process loss| at each bf16
+# step. The layouts compute each logit with other reduction orders and
+# splits, so a bf16 logit may differ by rounding (2^-8 of its magnitude,
+# logits of magnitude ~1 at these weights); a token's loss moves by at most
+# twice its largest logit change, and the mean over the batch by no more
+# than the largest token's. AdamW's first steps move every parameter by
+# about lr whatever its gradient's size, so a gradient within rounding of
+# zero may flip the sign of its update: a second-order change of the loss.
+MESH_LOSS_BOUND = 2 ** -7
+# (c): the MoE layout's bf16 losses at step s are held within the larger
+# of MESH_LOSS_BOUND and |bf16 - f32| of one process at step s: the
+# routing is discrete, and the layout's rounding moves near-tie choices
+# (below) as bf16 itself does, so its losses may stray from one process's
+# as far as bf16's own from f32's on the same weights and batch.
+# A choice is a near tie where its token's top-K margin (the K-th minus
+# the (K+1)-th router logit) is below what MESH_NEAR_ULPS bf16 ulps of
+# every router-input element can move it: tp2 rounds each `wo` partial
+# to bf16 and then their sum, where one process rounds once.
+MESH_NEAR_ULPS = 2
+# (d): vision batch; (e): Ulysses in bf16 at [B, T, H, D].
+MESH_VIS_B = 64
+MESH_UL_BF16 = (8, 2048, 16, 64)
+# Autograd's saved f32 elements a ring fold keeps, per B * H * t * t
+# (ring_attention._block_step; 2.44 measured at t = 512 on the CPU with
+# saved_tensors_hooks, falling with t): sizes sp2's batch in (b).
+RING_SAVED = 2.5
+# Where phase 14 runs: the card (a CPU rehearsal sets "cpu").
+MESH_DEVICE = "cuda"
+
+
+def mesh_per_step(layout: str, L: int) -> dict:
+    """K1 (plain, residual, backward), K2 and K3-K5 launches a rank makes
+    in one train step of an L-layer flagship: dp2 and tp2 as one device
+    (tp at H/2 heads); sp2 the same K1 and K2 and no K3-K5 (ring attention
+    is plain torch ops); pp2 with M microbatches of L/2 layers a stage: a
+    microbatch's 1 plain and L - 1 residual K1 (its last add plain), the
+    final norm once, K2 once (every stage runs the head) and K3-K5 once a
+    layer a microbatch."""
+    if layout == "sp2":
+        return {**train_per_step(L), "flash_forward": 0,
+                "flash_backward_dq": 0, "flash_backward_dkv": 0}
+    if layout == "pp2":
+        M, Ls = MESH_PP_MB, L // 2
+        return {"rms_norm": M + 1, "add_rms_norm": M * (2 * Ls - 1),
+                "rms_norm_backward": M * 2 * Ls + 1, "softmax_xent": 1,
+                "flash_forward": M * Ls, "flash_backward_dq": M * Ls,
+                "flash_backward_dkv": M * Ls}
+    return train_per_step(L)
+
+
+def mesh_sp_batch() -> int:
+    """(b)'s sp2 batch: TRAIN_B unless the ring's saved scores of both
+    ranks would take more than half the card's free memory, then the
+    largest power-of-two cut that fits (the width is never cut)."""
+    free = (torch.cuda.mem_get_info()[0] if MESH_DEVICE == "cuda"
+            else float("inf"))
+    H, T, L = FLAGSHIP["n_heads"], TRAIN_T, FLAGSHIP["n_layers"]
+    B = TRAIN_B
+    while B > 1 and MESH_RANKS * RING_SAVED * 4 * B * H * (T // 2) ** 2 \
+            * 2 * L > free / 2:
+        B //= 2
+    return B
+
+
+def rlog(msg: str) -> None:
+    """A line from rank 0 of the phase-14 world."""
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        log(msg)
+
+
+def msync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_free(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def rel_errs(got: dict, want: dict) -> dict:
+    """{leaf: max |got - want| / max |want|}."""
+    return {n: max_err(got[n], w) / max(w.abs().max().item(), 1e-30)
+            for n, w in want.items()}
+
+
+def mesh_f32(dev) -> dict:
+    """(a) One f32 step of each layout against the single-process step on
+    the card: the loss and every gathered gradient (averaged over dp and
+    sp as the train step does) within 1e-5 of its largest magnitude; and
+    Ulysses against single-rank flash_attention, forward and gradients."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import param_shardings
+    from ray_tpu_torch.parallel import (P, gather, make_mesh, shard,
+                                        ulysses_attention)
+    from ray_tpu_torch.parallel.collectives import (_reduce_raw,
+                                                    reduce_gradients)
+
+    cfg = TransformerConfig(dtype=torch.float32,
+                            **{**FLAGSHIP, "n_layers": MESH_F32_L})
+    rlog(f"phase 14 (a): f32, the flagship's widths at depth {MESH_F32_L}, "
+         f"batch {MESH_F32_B}, seq {MESH_F32_T}, TF32 off: one step of "
+         f"{', '.join(n for n, _ in MESH_LAYOUTS)} (pp with {MESH_F32_MB} "
+         f"microbatches) against one process on the card")
+    rank0 = dist.get_rank() == 0
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED + 60),
+                         cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 61).integers(
+        0, cfg.vocab_size, (MESH_F32_B, MESH_F32_T + 1))).to(dev)
+    out = {}
+    if rank0:
+        single = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          params)
+        ref_loss = loss_fn(single, {"tokens": tokens}, cfg)
+        ref_loss.backward()
+        ref = {n: t.grad for n, t in named_leaves(single).items()}
+        del single
+    for name, spec in MESH_LAYOUTS:
+        mesh = make_mesh(spec)
+        specs = param_shardings(cfg, mesh)
+        local = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                         shard(params, specs, mesh))
+        loss = loss_fn(local, {"tokens": shard(tokens, P("dp"), mesh)}, cfg,
+                       mesh, num_microbatches=MESH_F32_MB)
+        loss.backward()
+        reduce_gradients(list(named_leaves(local).values()), mesh)
+        grads = named_leaves(gather(tree_map(lambda t: t.grad, local), specs,
+                                    mesh))
+        if rank0:
+            errs = rel_errs(grads, ref)
+            worst = max(errs, key=errs.get)
+            dl = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+            if errs[worst] > 1e-5 or dl > 1e-5:
+                raise AssertionError(
+                    f"(a) {name}: loss off by {dl:.2e} (relative), gradient "
+                    f"{worst} off by {errs[worst]:.2e} of its largest "
+                    f"magnitude (bound 1e-5)")
+            log(f"  (a) {name}: loss {loss.item():.7f} vs "
+                f"{ref_loss.item():.7f} ({dl:.2e} relative); every gradient "
+                f"within "
+                f"{errs[worst]:.2e} of its largest magnitude ({worst})")
+            out[name] = {"loss_rel": dl, "grad_rel": errs[worst]}
+        del local, grads, loss
+        mesh_free(dev)
+
+    B, T, H, D = MESH_UL
+    mesh = make_mesh({"sp": 2})
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=dev)
+                   for _ in range(4))
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = ulysses_attention(qs, ks, vs, mesh, causal=True)
+    (o * do).sum().backward()
+    got = {"out": o.detach(), **{n: _reduce_raw(t.grad, mesh, "sp")
+                                 for n, t in zip("qkv", (qs, ks, vs))}}
+    if rank0:
+        q1, k1, v1 = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o1 = attention.flash_attention(q1, k1, v1, causal=True)
+        (o1 * do).sum().backward()
+        want = {"out": o1.detach(), "q": q1.grad, "k": k1.grad, "v": v1.grad}
+        errs = rel_errs(got, want)
+        worst = max(errs, key=errs.get)
+        if errs[worst] > 1e-5:
+            raise AssertionError(f"(a) Ulysses {worst} off by "
+                                 f"{errs[worst]:.2e} of its largest magnitude")
+        log(f"  (a) Ulysses f32 [{B}, {T}, {H}, {D}] over sp2: out, dq, dk, "
+            f"dv within {errs[worst]:.2e} of their largest magnitudes of "
+            f"flash_attention on one rank")
+        out["ulysses_rel"] = errs[worst]
+    mesh_free(dev)
+    return out
+
+
+def mesh_steps(what: str, step, per_step: dict, dev, B: int) -> dict:
+    """MESH_STEPS calls of ``step`` (it returns the step's global loss), each
+    with the launch counters and the staging counters set to 0 before and
+    read after; launches must be exactly ``per_step``."""
+    from ray_tpu_torch.parallel import collectives as coll
+
+    losses, walls, staged = [], [], []
+    for s in range(MESH_STEPS):
+        msync(dev)
+        reset_counts()
+        coll.reset_staging()
+        t0 = time.perf_counter()
+        losses.append(step())
+        msync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check_step_counts(f"{what} step {s}", {n: 0 for n in COUNTED},
+                          per_step)
+        staged.append(dict(coll.STAGING))
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    return {"losses": losses, "walls": walls, "staged": staged,
+            "peak_gib": peak, "B": B}
+
+
+def mesh_report(name: str, res: dict, want: list, card: str,
+                bounds: list = None) -> None:
+    """Rank 0's line of a bf16 layout ``name`` ("(b) tp2"), and the loss
+    bound (``bounds`` a step, MESH_LOSS_BOUND by default) against the
+    single-process run's losses ``want``."""
+    bounds = bounds or [MESH_LOSS_BOUND] * MESH_STEPS
+    tokens = res["B"] * TRAIN_T
+    ms = float(np.median(res["walls"]))
+    st = res["staged"][-1]
+    rlog(f"  {name}: losses {res['losses']} vs one process "
+         f"{want[:MESH_STEPS]}; step {ms:.1f} ms median wall (first "
+         f"{res['walls'][0]:.1f}), {tokens / ms * 1e3:.1f} tokens/s, peak "
+         f"{res['peak_gib']:.2f} GiB a rank; staged {st['bytes'] / 1e6:.1f} "
+         f"MB a step a rank in {st['calls']} collectives: copies "
+         f"{st['copy_s'] * 1e3:.1f} ms, gloo {st['comm_s'] * 1e3:.1f} ms "
+         f"[{card}]")
+    for s, (got, ref, bound) in enumerate(zip(res["losses"], want,
+                                              bounds)):
+        if not (math.isfinite(got) and abs(got - ref) <= bound):
+            raise AssertionError(f"{name} step {s}: loss {got} vs one "
+                                 f"process {ref}, bound {bound}")
+
+
+def single_losses(cfg, tokens, dev) -> list:
+    """MESH_STEPS single-process steps of phase 5's train step from the
+    seed's weights on ``tokens`` (a batch cut for sp2)."""
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         device=dev)
+    init_opt, train_step = make_train_step(cfg)
+    opt = init_opt(params)
+    out = []
+    for _ in range(MESH_STEPS):
+        params, opt, loss = train_step(params, opt, {"tokens": tokens})
+        out.append(loss.item())
+    del params, opt
+    mesh_free(dev)
+    return out
+
+
+def mesh_bf16(ref: dict, dev, card: str) -> dict:
+    """(b) The bf16 flagship at full width and depth, phase 5's weights and
+    batch, MESH_STEPS AdamW steps: dp2 through MeshTrainer, tp2, sp2 and
+    pp2 through make_train_step."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import param_shardings
+    from ray_tpu_torch.parallel import P, make_mesh, shard
+    from ray_tpu_torch.train import MeshTrainer
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
+    L, V = cfg.n_layers, cfg.vocab_size
+    rlog(f"phase 14 (b): bf16, the flagship at full width and depth, "
+         f"{MESH_STEPS} AdamW steps a layout from phase 5's weights and "
+         f"batch ({TRAIN_B} x {TRAIN_T}; sp2 at batch {ref['sp_batch']}), "
+         f"pp2 with {MESH_PP_MB} microbatches; losses within "
+         f"{MESH_LOSS_BOUND} of one process")
+    every = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, V, (TRAIN_B, TRAIN_T + 1))).to(dev)
+
+    def adamw(leaves):   # make_train_step's optimizer
+        return torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=0.01)
+
+    out = {}
+    for name, spec in MESH_LAYOUTS:
+        B = ref["sp_batch"] if name == "sp2" else TRAIN_B
+        tokens = every[:B]
+        want = ref["train_losses"]
+        if B != TRAIN_B:
+            rlog(f"  (b) sp2: batch cut from {TRAIN_B} to {B}: the ring's "
+                 f"saved scores would not fit beside the rest; one process "
+                 f"runs {MESH_STEPS} steps at batch {B} for the reference")
+            got = single_losses(cfg, tokens, dev) if dist.get_rank() == 0 \
+                else None
+            want = _bcast_list(got, make_mesh(spec))
+        mesh = make_mesh(spec)
+        mesh_free(dev)
+        if name == "dp2":
+            trainer = MeshTrainer(
+                lambda gen: init_params(gen, cfg, device=dev),
+                lambda p, b: loss_fn(p, b, cfg, mesh), optimizer=adamw,
+                mesh=mesh, param_shardings=param_shardings(cfg, mesh),
+                batch_spec=P("dp"), seed=SEED)
+
+            def step():
+                return trainer.train_step({"tokens": tokens})
+        else:
+            state = {"params": shard(init_params(
+                torch.Generator(device=dev).manual_seed(SEED), cfg,
+                device=dev), param_shardings(cfg, mesh), mesh)}
+            init_opt, train_step = make_train_step(
+                cfg, mesh, num_microbatches=MESH_PP_MB if name == "pp2"
+                else 0)
+            state["opt"] = init_opt(state["params"])
+            batch = {"tokens": shard(tokens, P("dp"), mesh)}
+
+            def step():
+                state["params"], state["opt"], loss = train_step(
+                    state["params"], state["opt"], batch)
+                return loss.item()
+        res = mesh_steps(f"(b) {name} rank {dist.get_rank()}", step,
+                         mesh_per_step(name, L), dev, B)
+        mesh_report(f"(b) {name}", res, want, card)
+        out[name] = res
+        trainer = state = step = None
+        mesh_free(dev)
+    return out
+
+
+def _bcast_list(values, mesh) -> list:
+    """rank 0's list of floats on every rank."""
+    from ray_tpu_torch.parallel.collectives import _broadcast_raw
+    t = torch.tensor(values if values is not None else [0.0] * MESH_STEPS,
+                     dtype=torch.float64)
+    for axis in mesh.axis_names:
+        t = _broadcast_raw(t, mesh, axis, 0)
+    return t.tolist()
+
+
+def bf16_ulp(y: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp of each element of ``y`` (0 where it is 0)."""
+    m, e = torch.frexp(y.float())
+    return torch.where(y == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def near_ties(x: torch.Tensor, router: torch.Tensor, K: int) -> tuple:
+    """Per token of a bf16 router input ``x`` [.., E]: the top-K margin of
+    its f32 router logits, and the most that MESH_NEAR_ULPS ulps of each
+    element can move the logit gap of the experts K and K+1."""
+    y = x.reshape(-1, x.shape[-1])
+    r = router.float()
+    top, idx = (y.float() @ r).topk(K + 1, dim=-1)
+    diff = (r[:, idx[:, K - 1]] - r[:, idx[:, K]]).abs().T      # [n, E]
+    reach = MESH_NEAR_ULPS * (bf16_ulp(y) * diff).sum(-1)
+    return top[:, K - 1] - top[:, K], reach
+
+
+def moe_vs_one_process(cfg, tokens, mesh_probe, drops: list, ref: dict,
+                       dev) -> list:
+    """(c) on rank 0: one process's step-0 forward of phase 13's weights and
+    batch (no gradient; its drops must be phase 13's), and per layer the
+    mesh's choices that differ from it. At layer 0, where the inputs
+    differ by the layout's rounding alone, no token's K/K+1 logit gap may
+    move by more than its reach (``near_ties``), so every changed choice
+    is a near tie; later layers carry the earlier layers' changes and
+    rounding through the residual stream and attention, and are counted.
+    At every layer the drops may differ by at most the changed choices (a
+    choice moved to another expert moves at most one drop). Returns a row
+    of counts a layer."""
+    N, K = cfg.n_experts, cfg.top_k
+    params = moe_tr.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 20), cfg, device=dev)
+    with torch.no_grad(), RoutingProbe(keep_inputs=True) as one:
+        moe_tr.forward(params, tokens[:, :-1], cfg)
+    del params
+    one_drops = [int((~r.in_cap).sum()) for r in one.layers]
+    if one_drops != ref["moe_dropped"]:
+        raise AssertionError(f"(c) one process's forward drops {one_drops}, "
+                             f"its train step (phase 13) "
+                             f"{ref['moe_dropped']}")
+    earlier = None
+    rows = []
+    for i, (x1, r1, xm, rm) in enumerate(zip(one.inputs, one.layers,
+                                             mesh_probe.inputs,
+                                             mesh_probe.layers)):
+        margin, reach = near_ties(x1, one.routers[i], K)
+        near = margin < reach
+        changed = (torch.nn.functional.one_hot(rm.expert_idx, N).sum(1)
+                   > torch.nn.functional.one_hot(r1.expert_idx, N).sum(1)
+                   ).sum(1)                                      # [n]
+        if earlier is None:
+            earlier = torch.zeros_like(near)
+        # The input's differences, in ulps of the larger of the two values,
+        # and what they move each token's gap of experts K and K+1 by,
+        # over its reach.
+        n = near.numel()
+        d = (xm.float() - x1.float()).reshape(n, -1)
+        big = torch.maximum(x1.float().abs(), xm.float().abs())
+        ulps = d.abs() / bf16_ulp(big).reshape(n, -1).clamp_min(2 ** -126)
+        r = one.routers[i].float()
+        top = (x1.reshape(n, -1).float() @ r).topk(K + 1, dim=-1)[1]
+        shift = (d * (r[:, top[:, K - 1]] - r[:, top[:, K]]).T).sum(-1)
+        over = (shift.abs() / reach.clamp_min(1e-30))
+        row = {"dropped": drops[i], "one": one_drops[i],
+               "changed": int(changed.sum()),
+               "near_tokens": int(near.sum()),
+               "near": int(changed[near].sum()),
+               "after_earlier": int(changed[~near & earlier].sum()),
+               "other": int(changed[~near & ~earlier].sum()),
+               "differ": (d != 0).float().mean().item(),
+               "ulps_max": ulps.max().item(),
+               "shift_over_reach": (over[~earlier].max().item()
+                                    if bool((~earlier).any()) else 0.0)}
+        rows.append(row)
+        rlog(f"  (c) layer {i}: dropped {row['dropped']}, one process "
+             f"{row['one']}; {row['changed']} choices on other experts than "
+             f"one process's: {row['near']} near ties (of "
+             f"{row['near_tokens']} near-tie tokens, margin below "
+             f"{MESH_NEAR_ULPS} bf16 ulps of the input), "
+             f"{row['after_earlier']} on tokens changed at an earlier layer, "
+             f"{row['other']} other; {row['differ']:.2%} of the router "
+             f"input's elements differ, by at most {row['ulps_max']:.0f} "
+             f"ulps; on tokens not changed before, the K/K+1 logit gap moved "
+             f"by at most {row['shift_over_reach']:.3f} of its reach")
+        if abs(row["dropped"] - row["one"]) > row["changed"]:
+            raise AssertionError(f"(c) layer {i}: drops {row['dropped']} vs "
+                                 f"{row['one']}, more apart than the "
+                                 f"{row['changed']} changed choices")
+        earlier = earlier | (changed > 0)
+    if rows[0]["changed"] != rows[0]["near"] or \
+            rows[0]["shift_over_reach"] > 1:
+        raise AssertionError(
+            f"(c) layer 0: {rows[0]['changed']} changed choices, "
+            f"{rows[0]['near']} of them near ties; a token's K/K+1 logit gap "
+            f"moved by {rows[0]['shift_over_reach']:.3f} of its reach")
+    return rows
+
+
+def mesh_moe_f32(dev) -> dict:
+    """(c)'s witness: the MoE flagship's widths at depth MESH_F32_L, batch
+    MESH_F32_B x MESH_F32_T, f32, TF32 off, in the shipped tp2 layout
+    (``moe_transformer.param_shardings``: attention and experts over tp):
+    step 0's loss and every gathered gradient within 1e-5 of one
+    process's, each layer's routing equal to one process's, then
+    MESH_STEPS AdamW steps with each loss within 1e-5 (relative)."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import gather, make_mesh, shard
+
+    cfg = moe_tr.MoETransformerConfig(
+        dtype=torch.float32, **{**FLAGSHIP, "n_layers": MESH_F32_L}, **MOE)
+    rlog(f"phase 14 (c) f32: the MoE flagship's widths at depth "
+         f"{MESH_F32_L}, batch {MESH_F32_B}, seq {MESH_F32_T}, TF32 off, "
+         f"attention and experts over tp2, against one process")
+    rank0 = dist.get_rank() == 0
+    mesh = make_mesh({"tp": 2})
+    specs = moe_tr.param_shardings(cfg, mesh)
+    params = moe_tr.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 63), cfg, device=dev)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        SEED + 64).integers(0, cfg.vocab_size,
+                            (MESH_F32_B, MESH_F32_T + 1))).to(dev)}
+
+    def grads_and_steps(p, m):
+        """(loss, gradients, routings) of one backward, and the losses of
+        MESH_STEPS train steps, from ``p`` on mesh ``m``."""
+        local = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        with RoutingProbe() as probe:
+            loss = moe_tr.loss_fn(local, batch, cfg, m)
+        loss.backward()
+        grads = tree_map(lambda t: t.grad, local)
+        init_opt, step = moe_tr.make_train_step(cfg, m)
+        state = {"p": tree_map(lambda t: t.detach().clone(), p)}
+        opt = init_opt(state["p"])
+        losses = []
+        for _ in range(MESH_STEPS):
+            state["p"], opt, value = step(state["p"], opt, batch)
+            losses.append(value.item())
+        return loss.item(), grads, probe.layers, losses
+
+    loss, grads, routed, losses = grads_and_steps(shard(params, specs, mesh),
+                                                  mesh)
+    grads = named_leaves(gather(grads, specs, mesh))
+    out = {}
+    if rank0:
+        ref_loss, ref_grads, ref_routed, ref_losses = grads_and_steps(params,
+                                                                      None)
+        errs = rel_errs(grads, named_leaves(ref_grads))
+        worst = max(errs, key=errs.get)
+        gaps = [abs(a - b) / abs(b) for a, b in zip([loss] + losses,
+                                                    [ref_loss] + ref_losses)]
+        same = all(torch.equal(a.expert_idx, b.expert_idx)
+                   and torch.equal(a.position, b.position)
+                   for a, b in zip(routed, ref_routed))
+        log(f"  (c) f32: loss {loss:.7f} vs {ref_loss:.7f}; every gradient "
+            f"within {errs[worst]:.2e} of its largest magnitude ({worst}); "
+            f"routing equal to one process's at every layer: {same}; "
+            f"{MESH_STEPS} AdamW steps {losses} vs {ref_losses}, largest "
+            f"relative gap {max(gaps):.2e}")
+        if errs[worst] > 1e-5 or max(gaps) > 1e-5 or not same:
+            raise AssertionError(
+                f"(c) f32: gradient {worst} off by {errs[worst]:.2e}, losses "
+                f"by {max(gaps):.2e} (bound 1e-5), routing equal: {same}")
+        out = {"grad_rel": errs[worst], "loss_rel": max(gaps)}
+    grads = routed = None
+    mesh_free(dev)
+    return out
+
+
+def mesh_moe(ref: dict, dev, card: str) -> dict:
+    """(c) The MoE flagship (phase 13's config, weights and batch) in the
+    shipped layout (``moe_transformer.param_shardings``: attention over
+    tp2 as the dense model's, experts over tp2), MESH_STEPS steps: exact
+    launches; at step 0 each layer's routing equal to one device's routing
+    of the mesh's own layer input (experts, queue positions, capacity),
+    and against one process (``moe_vs_one_process``) layer 0's routing
+    moved by rounding alone; the losses within the larger of
+    MESH_LOSS_BOUND and one process's |bf16 - f32| a step
+    (``ref["moe_f32_losses"]``). The f32 witness (``mesh_moe_f32``) runs
+    first."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import make_mesh, shard
+
+    out = {"f32": mesh_moe_f32(dev)}
+    cfg = moe_tr.MoETransformerConfig(dtype=torch.bfloat16, **FLAGSHIP,
+                                      **MOE)
+    L, V = cfg.n_layers, cfg.vocab_size
+    bounds = [max(MESH_LOSS_BOUND, abs(a - b)) for a, b in
+              zip(ref["moe_losses"], ref["moe_f32_losses"])]
+    rlog(f"phase 14 (c): the MoE flagship ({cfg.n_experts} experts, top "
+         f"{cfg.top_k}, capacity {cfg.capacity_factor}) with attention and "
+         f"experts over tp2, batch {MOE_B} x {TRAIN_T}, {MESH_STEPS} steps "
+         f"from phase 13's weights and batch; losses within {bounds} of one "
+         f"process's (one process's bf16 - f32: "
+         f"{[abs(a - b) for a, b in zip(ref['moe_losses'], ref['moe_f32_losses'])]})")
+    mesh = make_mesh({"tp": 2})
+    mesh_free(dev)
+    specs = moe_tr.param_shardings(cfg, mesh, expert_axis="tp")
+    params = shard(moe_tr.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 20), cfg, device=dev),
+        specs, mesh)
+    init_opt, train_step = moe_tr.make_train_step(cfg, mesh)
+    state = {"params": params, "opt": init_opt(params)}
+    del params
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, V, (MOE_B, TRAIN_T + 1))).to(dev)
+    probes = []
+
+    def step():
+        with RoutingProbe(keep_inputs=not probes) as probe:
+            state["params"], state["opt"], loss = train_step(
+                state["params"], state["opt"], {"tokens": tokens})
+            value = loss.item()
+        probes.append(probe)
+        return value
+
+    res = mesh_steps(f"(c) MoE tp2 rank {dist.get_rank()}", step,
+                     train_per_step(L), dev, MOE_B)
+    state = None
+    first = probes[0]
+    moe = cfg.moe_cfg()
+    drops = []
+    for i, (x, r) in enumerate(zip(first.inputs, first.layers)):
+        # Step 0's layer input and (replicated) router, kept by the probe.
+        one = moe_mod.route(x.reshape(-1, x.shape[-1]), first.routers[i],
+                            moe)
+        for field in ("expert_idx", "position", "in_cap"):
+            if not torch.equal(getattr(one, field), getattr(r, field)):
+                raise AssertionError(f"(c) layer {i}: the mesh's {field} "
+                                     "differs from one device's on the same "
+                                     "input")
+        drops.append(int((~r.in_cap).sum()))
+    rlog(f"  (c) step 0: routing equal to one device's on each layer's own "
+         f"input; choices dropped a layer {drops}, one process (phase 13) "
+         f"{ref['moe_dropped']}")
+    mesh_free(dev)
+    if dist.get_rank() == 0:
+        res["layers"] = moe_vs_one_process(cfg, tokens, first, drops, ref,
+                                           dev)
+    mesh_report("(c) MoE tp2", res, ref["moe_losses"], card, bounds)
+    res.update(dropped=drops, bounds=bounds, **out)
+    probes = first = None
+    mesh_free(dev)
+    return res
+
+
+def mesh_vision(dev) -> dict:
+    """(d) The vision family at VisionConfig()'s defaults over dp2, f32,
+    cuDNN deterministic: the loss (the mean of the ranks') and every
+    gradient (averaged over dp) against one process that takes the batch
+    in the same two halves and averages, within 1e-5 of its largest
+    magnitude; the distance to one process's whole-batch gradients is
+    printed (cuDNN sums a batch of 64 and of 32 in other orders, and the
+    GroupNorm biases' gradients cancel: 1.06e-4 of the largest magnitude
+    on an H100)."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import vision_param_shardings
+    from ray_tpu_torch.parallel import P, gather, make_mesh, shard
+    from ray_tpu_torch.parallel.collectives import (all_reduce_mean,
+                                                    reduce_gradients)
+
+    cfg = VisionConfig()
+    rlog(f"phase 14 (d): vision, VisionConfig(), f32, batch {MESH_VIS_B} "
+         f"over dp2 against one process")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh({"dp": 2})
+    params = init_vision_params(
+        torch.Generator(device=dev).manual_seed(SEED + 70), cfg, device=dev)
+    batch = {k: v.to(dev) for k, v in quadrant_batches(
+        cfg, MESH_VIS_B, 1, SEED + 71)[0].items()}
+    specs = vision_param_shardings(cfg, mesh)
+    local = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     shard(params, specs, mesh))
+    loss = all_reduce_mean(vision_loss(local, shard(batch, P("dp"), mesh),
+                                       cfg), mesh, "dp")
+    loss.backward()
+    reduce_gradients(list(named_leaves(local).values()), mesh)
+    grads = named_leaves(gather(tree_map(lambda t: t.grad, local), specs,
+                                mesh))
+    out = {}
+    if dist.get_rank() == 0:
+        def one_process(parts):
+            """The mean loss of ``parts`` and its gradients, one device."""
+            single = tree_map(
+                lambda t: t.detach().clone().requires_grad_(True), params)
+            value = sum(vision_loss(single, part, cfg) for part in parts)
+            (value / len(parts)).backward()
+            return (value.item() / len(parts),
+                    {n: t.grad for n, t in named_leaves(single).items()})
+
+        half = MESH_VIS_B // 2
+        ref, want = one_process([{k: v[:half] for k, v in batch.items()},
+                                 {k: v[half:] for k, v in batch.items()}])
+        errs = rel_errs(grads, want)
+        worst = max(errs, key=errs.get)
+        dl = abs(loss.item() - ref) / abs(ref)
+        if errs[worst] > 1e-5 or dl > 1e-5:
+            raise AssertionError(f"(d) vision: loss off by {dl:.2e}, "
+                                 f"gradient {worst} by {errs[worst]:.2e}")
+        whole, want_whole = one_process([batch])
+        werrs = rel_errs(grads, want_whole)
+        wworst = max(werrs, key=werrs.get)
+        log(f"  (d) loss {loss.item():.7f} vs {ref:.7f} ({dl:.2e} "
+            f"relative); every gradient within {errs[worst]:.2e} of its "
+            f"largest magnitude ({worst}); against the whole batch on one "
+            f"device: loss {whole:.7f}, gradients within "
+            f"{werrs[wworst]:.2e} ({wworst})")
+        out = {"loss_rel": dl, "grad_rel": errs[worst],
+               "whole_batch_rel": werrs[wworst]}
+    torch.backends.cudnn.deterministic = deterministic
+    mesh_free(dev)
+    return out
+
+
+def mesh_ulysses_bf16(dev, card: str) -> dict:
+    """(e) ulysses_attention_sharded in bf16 at MESH_UL_BF16 over sp2, a
+    forward and backward: per rank exactly one K3, one K4 and one K5 (at
+    H/2 heads over the whole sequence); out and gradients, gathered,
+    against one flash_attention over all heads (the same kernels, each head
+    computed alone: within bf16's 2e-2, and the bits compared)."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import (P, gather, make_mesh, shard,
+                                        ulysses_attention_sharded)
+
+    B, T, H, D = MESH_UL_BF16
+    rlog(f"phase 14 (e): Ulysses, bf16 [{B}, {T}, {H}, {D}] over sp2, a "
+         f"forward and backward")
+    mesh = make_mesh({"sp": 2})
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    spec = P(None, "sp")
+    ql, kl, vl = (t.clone().requires_grad_(True)
+                  for t in shard((q, k, v), spec, mesh))
+    msync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    ol = ulysses_attention_sharded(ql, kl, vl, mesh, causal=True)
+    ol.backward(shard(do, spec, mesh))
+    msync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    check_step_counts(f"(e) Ulysses rank {dist.get_rank()}",
+                      {n: 0 for n in COUNTED},
+                      {"flash_forward": 1, "flash_backward_dq": 1,
+                       "flash_backward_dkv": 1})
+    got = gather({"out": ol.detach(), "q": ql.grad, "k": kl.grad,
+                  "v": vl.grad}, spec, mesh)
+    out = {"wall_ms": wall}
+    if dist.get_rank() == 0:
+        q1, k1, v1 = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o1 = attention.flash_attention(q1, k1, v1, causal=True)
+        o1.backward(do)
+        want = {"out": o1.detach(), "q": q1.grad, "k": k1.grad, "v": v1.grad}
+        same = {n: torch.equal(got[n], want[n]) for n in want}
+        for n in want:
+            check_close(f"(e) Ulysses {n} vs one flash_attention", got[n],
+                        want[n], atol=2e-2, rtol=2e-2)
+        log(f"  (e) {wall:.1f} ms a forward and backward (host clock, "
+            f"collectives included); the same bits as one flash_attention: "
+            f"{same}; launches a rank exactly 1 K3, 1 K4, 1 K5 [{card}]")
+        out["same_bits"] = same
+    mesh_free(dev)
+    return out
+
+
+def mesh_rank(ref: dict, card: str) -> dict:
+    """Phase 14 in one rank of the world: (a)-(e) in turn."""
+    from ray_tpu_torch.parallel.mesh import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device()
+    t0 = time.perf_counter()
+    out = {"f32": mesh_f32(dev), "bf16": mesh_bf16(ref, dev, card),
+           "moe": mesh_moe(ref, dev, card), "vision": mesh_vision(dev),
+           "ulysses": mesh_ulysses_bf16(dev, card)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_rank_entry(ref: dict, card: str) -> dict:
+    """What ``launch`` runs in each rank: this script imported as a module
+    there (the rank's function travels by value, and this one names
+    nothing of the script), then its ``mesh_rank``."""
+    import chip_smoke
+    return chip_smoke.mesh_rank(ref, card)
+
+
+def moe_f32_losses(card: str) -> list:
+    """(c)'s yardstick: MESH_STEPS steps of phase 13's MoE train step in
+    f32 on one process (TF32 off), from its weights and batch."""
+    cfg = moe_tr.MoETransformerConfig(dtype=torch.float32, **FLAGSHIP,
+                                      **MOE)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = moe_tr.init_params(tl_gen(SEED + 20), cfg, device=TL_DEVICE)
+    init_opt, train_step = moe_tr.make_train_step(cfg)
+    opt = init_opt(params)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        SEED + 21).integers(0, cfg.vocab_size,
+                            (MOE_B, TRAIN_T + 1))).to(TL_DEVICE)}
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(MESH_STEPS):
+        params, opt, loss = train_step(params, opt, batch)
+        losses.append(loss.item())
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase 14 (c)'s yardstick: the MoE flagship in f32 on one process, "
+        f"{MESH_STEPS} steps of phase 13's: losses {losses} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    del params, opt, batch
+    gc.collect()
+    if TL_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def mesh_path(train: dict, moe: dict, card: str) -> dict:
+    """Phase 14: the training half of the meshes (A7b) on the card."""
+    from ray_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    # The ranks share the card with this process: hand its cached blocks
+    # back first.
+    gc.collect()
+    if MESH_DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    sp_b = mesh_sp_batch()
+    free = (torch.cuda.mem_get_info()[0] / 2 ** 30 if MESH_DEVICE == "cuda"
+            else float("nan"))
+    log(f"phase 14: meshes for training, one world of {MESH_RANKS} rank "
+        f"processes on the card (gloo, collectives staged through pinned "
+        f"host memory); {free:.2f} GiB of the card free; sp2's batch "
+        f"{sp_b}")
+    ref = {"train_losses": train["losses"], "moe_losses": moe["losses"],
+           "moe_dropped": moe["dropped"], "sp_batch": sp_b,
+           "moe_f32_losses": moe_f32_losses(card)}
+    ranks = launch(mesh_rank_entry, MESH_RANKS, ref, card,
+                   device=MESH_DEVICE)
+    for part in ("bf16",):
+        for name in ranks[0][part]:
+            losses = [r[part][name]["losses"] for r in ranks]
+            if any(ls != losses[0] for ls in losses):
+                raise AssertionError(f"(b) {name}: ranks report different "
+                                     f"losses {losses}")
+    if ranks[0]["moe"]["losses"] != ranks[1]["moe"]["losses"]:
+        raise AssertionError("(c) ranks report different losses")
+    log(f"  phase 14 in {time.perf_counter() - t0:.1f} s "
+        f"({ranks[0]['seconds']:.1f} s in the ranks' function) [{card}]")
+    return ranks[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -4868,7 +5692,8 @@ def main() -> int:
     serve_path(params, cfg, main, paged, direct_growth, card)
     cluster_path(params, cfg, main, card)
     operator_path(main, card)
-    train_library_path(train, card)
+    library = train_library_path(train, card)
+    mesh_path(train, library, card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -1,12 +1,11 @@
 """Models (counterpart: ``ray_tpu/models``): the flagship transformer (its
 serving engines and its train step), the MoE transformer and the vision
-family, each on one device.
+family, each on one device or across the ranks of a mesh.
 
-Exported as in the JAX package: the flagship's config, init, forward, loss
-and train step, and the vision family's. ``moe_transformer`` is imported
-as a module (its names mirror the dense model's), and so is ``generate``.
-The shardings (``param_shardings``, ``vision_param_shardings``) come with
-the parallelism slice (A7b) of ROADMAP.md.
+Exported as in the JAX package: the flagship's config, init, forward, loss,
+train step and shardings, and the vision family's. ``moe_transformer`` is
+imported as a module (its names mirror the dense model's), and so is
+``generate``.
 """
 
 from .transformer import (  # noqa: F401
@@ -16,6 +15,7 @@ from .transformer import (  # noqa: F401
     loss_fn,
     make_train_step,
     named_leaves,
+    param_shardings,
     params_from_numpy,
     to_compute,
 )
@@ -28,6 +28,7 @@ from .vision import (  # noqa: F401
     vision_accuracy,
     vision_apply,
     vision_loss,
+    vision_param_shardings,
     vision_params_from_numpy,
 )
 # generate deliberately NOT re-exported: `from .generate import generate`

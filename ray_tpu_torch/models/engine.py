@@ -27,7 +27,8 @@ them): ``_alloc_cache``, ``_decode_all``, ``_verify_all``,
 ``_prefill_slot``, ``_release_slot`` and ``_can_admit``.
 
 Left for a later slice, and refused here with NotImplementedError: a
-tensor-parallel ``mesh``.
+tensor-parallel ``mesh`` (serving under tensor parallelism, A7c of
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -224,8 +225,8 @@ class GenerationEngine:
                  prefill_chunk: int = 0, device: Device = None):
         if mesh is not None:
             raise NotImplementedError(
-                "a tensor-parallel mesh is not ported yet; it comes with the "
-                "parallelism slice of ROADMAP.md")
+                "a tensor-parallel serving mesh is not ported yet; it comes "
+                "with serving under tensor parallelism (A7c) of ROADMAP.md")
         self.device = default_device(device)
         self.cfg = cfg
         self.slots = max_slots

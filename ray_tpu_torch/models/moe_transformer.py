@@ -13,9 +13,15 @@ K1 a forward, K3-K5 in each layer's attention, K2 in the loss. The
 router runs in f32 on the f32 parameter; the experts cast their weights
 to ``cfg.dtype`` where they are used, inside autograd.
 
+Under a mesh (``param_shardings``), attention is split over tp as in the
+dense model and the experts over the expert axis (tp by default; see
+``parallel/moe.py``). The embedding stays replicated, where the dense
+model splits it over tp, so the head gives whole rows of logits on every
+rank. The blocks are not pipelined: over a pp axis every stage holds the
+whole model.
+
 Not re-exported from ``models`` (as in the JAX package): its names mirror
-the dense model's. The mesh and ``param_shardings`` come with the
-parallelism slice (A7b) of ROADMAP.md.
+the dense model's.
 """
 
 from __future__ import annotations
@@ -27,9 +33,12 @@ import torch
 
 from .. import Device, default_device
 from ..ops.fused import softmax_cross_entropy
-from ..parallel.moe import MoEConfig, moe_ffn
-from .transformer import (TransformerConfig, _attention, _decoder,
-                          _no_parallelism, adamw_train_step, unbind_layers)
+from ..parallel.collectives import all_reduce_mean
+from ..parallel.mesh import P
+from ..parallel.moe import MoEConfig, _check_expert_axis, moe_ffn
+from .transformer import (TransformerConfig, _attention, _check_mesh,
+                          _decoder, _positions, _seq_block, adamw_train_step,
+                          unbind_layers)
 
 Params = Any
 
@@ -88,27 +97,59 @@ def init_params(generator: torch.Generator, cfg: MoETransformerConfig, *,
     }
 
 
+def param_shardings(cfg: MoETransformerConfig, mesh,
+                    expert_axis: str = "tp") -> Params:
+    """Experts sharded over ``expert_axis``; attention over tp like the
+    dense model; the embedding, norms and router replicated."""
+    _check_expert_axis(mesh, expert_axis)
+    return {
+        "embed": P(None, None),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, None, "tp"),
+            "wk": P(None, None, "tp"),
+            "wv": P(None, None, "tp"),
+            "wo": P(None, "tp", None),
+            "mlp_norm": P(None, None),
+            "moe": {
+                "router": P(None, None, None),
+                "w_gate": P(None, expert_axis, None, None),
+                "w_up": P(None, expert_axis, None, None),
+                "w_down": P(None, expert_axis, None, None),
+            },
+        },
+        "final_norm": P(None),
+    }
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: MoETransformerConfig,
-            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            mesh=None, *, expert_axis: str = "tp"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, T] -> (logits [B, T, V] in ``cfg.dtype``, the layers'
-    aux losses summed in layer order, f32)."""
-    _no_parallelism(mesh)
+    aux losses summed in layer order, f32). Under a mesh: this rank's shard
+    by ``param_shardings`` and its [B/dp, T] tokens -> its [B/dp, T/sp, V]
+    logits and the global aux loss."""
+    _check_mesh(mesh)
     dt = cfg.dtype
     moe = cfg.moe_cfg()
+    if mesh is not None:
+        tokens = _seq_block(tokens, mesh)
     embed = params["embed"].to(dt)
     x = embed[tokens]
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    positions = _positions(tokens.shape[1], mesh, x.device)
     layers = [{k: (w if k == "moe" else w.to(dt)) for k, w in layer.items()}
               for layer in unbind_layers(params["layers"], cfg.n_layers)]
     auxes = []
 
     def ffn(y, layer):
-        out, aux = moe_ffn(y, layer["moe"], moe)
+        out, aux = moe_ffn(y, layer["moe"], moe, mesh,
+                           expert_axis=expert_axis)
         auxes.append(aux)
         return out
 
     y = _decoder(x, layers, params["final_norm"], cfg.norm_eps,
-                 lambda i, layer, y: _attention(y, layer, cfg, positions),
+                 lambda i, layer, y: _attention(y, layer, cfg, positions,
+                                                mesh),
                  ffn)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for aux in auxes:
@@ -117,17 +158,23 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoETransformerConfig,
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: MoETransformerConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, *, expert_axis: str = "tp") -> torch.Tensor:
     """Next-token cross entropy (K2 on the card) averaged over B * T, plus
     the aux loss; batch = {"tokens": [B, T+1]}, moved to the parameters'
-    device."""
-    _no_parallelism(mesh)
+    device. Under a mesh, the rank's dp shard of the batch; the global
+    mean over dp and sp plus the global aux loss (module docstring of
+    ``transformer`` for the gradients)."""
+    _check_mesh(mesh)
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(params, inputs, cfg)
+    logits, aux = forward(params, inputs, cfg, mesh, expert_axis=expert_axis)
+    if mesh is not None:
+        targets = _seq_block(targets, mesh)
     B, T, V = logits.shape
     ce = softmax_cross_entropy(logits.float().reshape(B * T, V),
                                targets.reshape(B * T)).mean()
+    if mesh is not None:
+        ce = all_reduce_mean(ce, mesh, ("dp", "sp"))
     return ce + aux
 
 
@@ -136,6 +183,7 @@ def make_train_step(cfg: MoETransformerConfig, mesh=None,
     """(init_opt, train_step) as ``transformer.make_train_step``, with the
     JAX package's ``optax.adamw(learning_rate)``: weight decay 1e-4,
     optax's default (the dense flagship passes 0.01)."""
-    _no_parallelism(mesh)
-    return adamw_train_step(lambda params, batch: loss_fn(params, batch, cfg),
-                            learning_rate, weight_decay=1e-4)
+    _check_mesh(mesh)
+    return adamw_train_step(
+        lambda params, batch: loss_fn(params, batch, cfg, mesh),
+        learning_rate, weight_decay=1e-4, mesh=mesh)

@@ -40,7 +40,7 @@ attention runs over the gathered pool, plain PyTorch as the JAX package's
 is XLA. A tick with no drafts anywhere takes ``_decode_all`` and so K7.
 
 Left for a later slice, and refused with NotImplementedError by the base
-engine: a tensor-parallel ``mesh``.
+engine: a tensor-parallel ``mesh`` (A7c of ROADMAP.md).
 """
 
 from __future__ import annotations

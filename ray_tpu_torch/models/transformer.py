@@ -17,6 +17,19 @@ the JAX package casts each weight to the compute dtype ``cfg.dtype`` at
 every use. Serving casts once (``to_compute``), which gives the same
 numbers; training (``forward``, ``loss_fn``, ``make_train_step``) casts
 inside autograd, so the gradients reach the f32 parameters.
+
+Under a ``Mesh`` (``parallel.make_mesh``) each rank holds its shard of the
+parameters by ``param_shardings`` (``parallel.shard``) and its dp shard of
+the batch, P("dp"), whole along the sequence; the model splits the
+sequence over sp itself. The layer loop is ``_decoder`` on the rank's
+[b, t, E] block, the JAX package's manual-SPMD ``_block_manual``: the
+vocab-parallel embedding (masked lookup, then g over tp), attention over
+the rank's H/tp heads (``flash_attention`` where the sequence is whole on
+the rank, ring attention over sp where it is not) and the MLP over its
+d_ff/tp columns, each entering through f and leaving through g
+(``parallel.collectives``). The residual add follows each all-reduce, so a
+rank launches K1 as on one device. With pp > 1 the blocks run as a GPipe
+pipeline (``forward_pipelined``).
 """
 
 from __future__ import annotations
@@ -31,6 +44,12 @@ from .. import Device, default_device
 from .._tree import tree_map
 from ..ops.attention import flash_attention
 from ..ops.fused import add_rms_norm, rms_norm, softmax_cross_entropy
+from ..parallel.collectives import (all_gather, all_reduce_grad,
+                                    all_reduce_mean, all_reduce_sum,
+                                    reduce_gradients)
+from ..parallel.mesh import Mesh, P
+from ..parallel.pipeline import gpipe_sharded
+from ..parallel.ring_attention import ring_attention_sharded
 
 Params = Dict[str, Any]
 
@@ -52,6 +71,14 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    def validate_for_mesh(self, mesh: Mesh) -> None:
+        tp = mesh.shape["tp"]
+        assert self.n_heads % tp == 0, "n_heads must divide tp"
+        assert self.n_kv_heads % tp == 0, "n_kv_heads must divide tp"
+        assert self.d_ff % tp == 0 and self.vocab_size % tp == 0
+        pp = mesh.shape.get("pp", 1)
+        assert self.n_layers % pp == 0, "n_layers must divide pp"
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig, *,
@@ -116,6 +143,29 @@ def to_compute(params: Params, cfg: TransformerConfig,
     return params.to(device=device, dtype=cfg.dtype)
 
 
+# Per-layer partition specs of the stacked [L, ...] weights: the leading
+# layer dim over pp; Megatron's layout over tp (column-parallel qkv, gate
+# and up, row-parallel wo and w_down).
+_LAYER_PSPECS = {
+    "attn_norm": P("pp", None),
+    "wq": P("pp", None, "tp"),
+    "wk": P("pp", None, "tp"),
+    "wv": P("pp", None, "tp"),
+    "wo": P("pp", "tp", None),
+    "mlp_norm": P("pp", None),
+    "w_gate": P("pp", None, "tp"),
+    "w_up": P("pp", None, "tp"),
+    "w_down": P("pp", "tp", None),
+}
+
+
+def param_shardings(cfg: TransformerConfig, mesh: Mesh) -> Params:
+    """Megatron layout: the embedding split over tp on the vocab axis,
+    attention and MLP column then row parallel over tp, layers over pp."""
+    return {"embed": P("tp", None), "layers": dict(_LAYER_PSPECS),
+            "final_norm": P(None)}
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s weights: views into the stacked [L, ...] tensors."""
     return {k: v[i] for k, v in params["layers"].items()}
@@ -177,12 +227,17 @@ def _decoder(x: torch.Tensor, layers: List[Params], final_norm: torch.Tensor,
     MoE model's routed experts). Every residual add is fused into the norm
     that follows it, so the loop is one plain RMSNorm and 2L
     ``add_rms_norm``: 2L + 1 launches of kernel K1 on the card, and no
-    launch of an add. Returns the final norm's output."""
+    launch of an add. Returns the final norm's output; with ``final_norm``
+    None (a pipeline stage's share of the layers), the residual stream
+    after the last layer instead, whose add is then a plain one (2L - 1
+    residual K1)."""
     y = _rms_norm(x, layers[0]["attn_norm"] if layers else final_norm, eps)
     for i, layer in enumerate(layers):
         h, y = _add_rms_norm(x, attend(i, layer, y), layer["mlp_norm"], eps)
         nxt = (layers[i + 1]["attn_norm"] if i + 1 < len(layers)
                else final_norm)
+        if nxt is None:
+            return h + ffn(y, layer)
         x, y = _add_rms_norm(h, ffn(y, layer), nxt, eps)
     return y
 
@@ -190,11 +245,10 @@ def _decoder(x: torch.Tensor, layers: List[Params], final_norm: torch.Tensor,
 # ------------------------------------------------------------- training
 
 
-def _no_parallelism(mesh, num_microbatches: int = 0) -> None:
-    if mesh is not None or num_microbatches > 0:
-        raise NotImplementedError(
-            "a mesh and pipelined microbatches are not ported yet; they come "
-            "with the parallelism slice (A7b) of ROADMAP.md")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a ray_tpu_torch.parallel Mesh "
+                        f"(parallel.make_mesh), not {type(mesh).__name__}")
 
 
 def named_leaves(tree: Params, prefix: str = "") -> Dict[str, Any]:
@@ -224,54 +278,176 @@ def unbind_layers(layers: Params, n_layers: int) -> List[Params]:
 
 
 def _attention(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     """Causal self-attention of one layer through ``flash_attention``
     (kernels K3, K4, K5 on the card); ``layer``'s weights are already in the
-    compute dtype."""
+    compute dtype. Under a mesh with tp > 1, over this rank's H/tp heads
+    (x through f, the ``wo`` partials through g); with sp > 1, as ring
+    attention over the rank's sequence block at ``positions``."""
     B, T, _ = x.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    split = mesh is not None and mesh.size("tp") > 1
+    tp = mesh.size("tp") if split else 1
+    H, KH = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    if split:
+        x = all_reduce_grad(x, mesh, "tp")
     q = _rope((x @ layer["wq"]).reshape(B, T, H, Dh), positions,
               cfg.rope_theta)
     k = _rope((x @ layer["wk"]).reshape(B, T, KH, Dh), positions,
               cfg.rope_theta)
     v = (x @ layer["wv"]).reshape(B, T, KH, Dh)
-    out = flash_attention(q, k, v, causal=True)
-    return out.reshape(B, T, H * Dh) @ layer["wo"]
+    if mesh is not None and mesh.size("sp") > 1:
+        out = ring_attention_sharded(q, k, v, mesh, causal=True)
+    else:
+        out = flash_attention(q, k, v, causal=True)
+    out = out.reshape(B, T, H * Dh) @ layer["wo"]
+    return all_reduce_sum(out, mesh, "tp") if split else out
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            mesh=None) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V] in ``cfg.dtype``, differentiable
-    in the parameters. The layer loop walks the stacked [L, ...] tensors
-    (JAX's ``scan``) and casts each weight to ``cfg.dtype`` where it is
-    used, inside autograd."""
-    _no_parallelism(mesh)
-    dt = cfg.dtype
+def _mlp_tp(mesh: Mesh):
+    """The MLP over this rank's d_ff/tp columns: f in, g out."""
+    if mesh is None or mesh.size("tp") == 1:
+        return _mlp
+    return lambda y, layer: all_reduce_sum(
+        _mlp(all_reduce_grad(y, mesh, "tp"), layer), mesh, "tp")
+
+
+def _seq_block(tokens: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a [b, T] tensor along the sequence (sp)."""
+    sp, j = mesh.size("sp"), mesh.index("sp")
     T = tokens.shape[1]
-    embed = params["embed"].to(dt)
-    x = embed[tokens]                                         # [B, T, E]
-    positions = torch.arange(T, device=x.device)
-    layers = [tree_map(lambda w: w.to(dt), layer)
-              for layer in unbind_layers(params["layers"], cfg.n_layers)]
-    y = _decoder(x, layers, params["final_norm"], cfg.norm_eps,
-                 lambda i, layer, y: _attention(y, layer, cfg, positions))
+    if T % sp:
+        raise ValueError(f"sequence length {T} does not split over sp={sp}")
+    t = T // sp
+    return tokens[:, j * t:(j + 1) * t]
+
+
+def _positions(t: int, mesh: Mesh, device) -> torch.Tensor:
+    offset = mesh.index("sp") * t if mesh is not None else 0
+    return offset + torch.arange(t, device=device)
+
+
+def _embed(embed: torch.Tensor, tokens: torch.Tensor,
+           mesh: Mesh) -> torch.Tensor:
+    """The lookup of ``tokens`` in the rank's vocab rows ``embed`` [V/tp,
+    E]: a token outside them gives zeros, and the sum over tp (g) gives
+    every token its row."""
+    if mesh is None or mesh.size("tp") == 1:
+        return embed[tokens]
+    V_l = embed.shape[0]
+    local = tokens - mesh.index("tp") * V_l
+    inside = (local >= 0) & (local < V_l)
+    x = embed[local.clamp(0, V_l - 1)] * inside[..., None].to(embed.dtype)
+    return all_reduce_sum(x, mesh, "tp")
+
+
+def _head(y: torch.Tensor, embed: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The tied head over the rank's vocab rows: logits [.., V/tp]."""
+    if mesh is not None and mesh.size("tp") > 1:
+        y = all_reduce_grad(y, mesh, "tp")
     return y @ embed.T
 
 
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh: Mesh = None) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V] in ``cfg.dtype``, differentiable
+    in the parameters. The layer loop walks the stacked [L, ...] tensors
+    (JAX's ``scan``) and casts each weight to ``cfg.dtype`` where it is
+    used, inside autograd. Under a mesh: this rank's parameter shard and
+    its [B/dp, T] tokens -> its [B/dp, T/sp, V/tp] block of the logits
+    (the JAX package's P("dp", "sp", "tp")); with pp > 1 the blocks run as
+    a pipeline of one microbatch."""
+    _check_mesh(mesh)
+    if mesh is not None and mesh.size("pp") > 1:
+        return forward_pipelined(params, tokens, cfg, mesh,
+                                 num_microbatches=1)
+    dt = cfg.dtype
+    if mesh is not None:
+        tokens = _seq_block(tokens, mesh)
+    embed = params["embed"].to(dt)
+    x = _embed(embed, tokens, mesh)                           # [B, T, E]
+    positions = _positions(tokens.shape[1], mesh, x.device)
+    layers = [tree_map(lambda w: w.to(dt), layer)
+              for layer in unbind_layers(params["layers"], cfg.n_layers)]
+    y = _decoder(x, layers, params["final_norm"], cfg.norm_eps,
+                 lambda i, layer, y: _attention(y, layer, cfg, positions,
+                                                mesh),
+                 _mlp_tp(mesh))
+    return _head(y, embed, mesh)
+
+
+def forward_pipelined(params: Params, tokens: torch.Tensor,
+                      cfg: TransformerConfig, mesh: Mesh, *,
+                      num_microbatches: int) -> torch.Tensor:
+    """``forward`` with the blocks run as a GPipe pipeline over pp
+    (``parallel.gpipe_sharded``): this rank holds layers [s L/pp,
+    (s+1) L/pp) of stage s. Every stage embeds its tokens; the embedded
+    block enters the pipeline on stage 0 (through f over pp, so the
+    embedding's gradient is whole on every stage), and the last stage's
+    output comes back to every stage, which runs the final norm and the
+    head. A stage's microbatch is one plain K1, 2 L/pp - 1 residual K1 and
+    a plain add; K3-K5 once a layer (where sp is 1)."""
+    _check_mesh(mesh)
+    dt = cfg.dtype
+    tokens = _seq_block(tokens, mesh)
+    b, t = tokens.shape
+    M = num_microbatches
+    if b % M:
+        raise ValueError(f"batch {b} not divisible by num_microbatches {M}")
+    embed = params["embed"].to(dt)
+    x = all_reduce_grad(_embed(embed, tokens, mesh), mesh, "pp")
+    positions = _positions(t, mesh, x.device)
+    stacked = {k: w.to(dt) for k, w in params["layers"].items()}
+    mlp = _mlp_tp(mesh)
+
+    def stage_fn(stacked, x_mb):
+        layers = unbind_layers(stacked, stacked["wq"].shape[0])
+        return _decoder(x_mb, layers, None, cfg.norm_eps,
+                        lambda i, layer, y: _attention(y, layer, cfg,
+                                                       positions, mesh),
+                        mlp)
+
+    out = gpipe_sharded(stage_fn, stacked, x.reshape(M, b // M, t, -1),
+                        mesh, axis_name="pp")
+    y = _rms_norm(out.reshape(b, t, -1), params["final_norm"], cfg.norm_eps)
+    return _head(y, embed, mesh)
+
+
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
-            mesh=None, *, num_microbatches: int = 0) -> torch.Tensor:
+            mesh: Mesh = None, *, num_microbatches: int = 0) -> torch.Tensor:
     """Next-token cross entropy, averaged over B * T; batch =
     {"tokens": [B, T+1]} (a tensor, or anything ``torch.as_tensor`` takes,
     moved to the parameters' device). The logits are cast to f32 before
-    ``softmax_cross_entropy`` (kernel K2 on the card)."""
-    _no_parallelism(mesh, num_microbatches)
+    ``softmax_cross_entropy`` (kernel K2 on the card).
+
+    Under a mesh, the rank's dp shard of the batch ([B/dp, T+1]); the
+    rank's logits block is all-gathered over tp (in ``cfg.dtype``, each
+    rank's gradient its own slice) and K2 runs on whole rows of the rank's
+    tokens. Returns the global mean over dp and sp, whose gradient is the
+    rank's share: the train step averages the gradients over dp and sp.
+    With pp > 1 the blocks run pipelined with ``num_microbatches`` splits
+    (default 2 * pp)."""
+    _check_mesh(mesh)
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = forward(params, inputs, cfg).float()
+    if mesh is None:
+        logits = forward(params, inputs, cfg).float()
+    else:
+        targets = _seq_block(targets, mesh)
+        pp = mesh.size("pp")
+        if pp > 1:
+            logits = forward_pipelined(
+                params, inputs, cfg, mesh,
+                num_microbatches=num_microbatches or 2 * pp)
+        else:
+            logits = forward(params, inputs, cfg, mesh)
+        logits = all_gather(logits, mesh, "tp", axis=-1).float()
     B, T, V = logits.shape
     losses = softmax_cross_entropy(logits.reshape(B * T, V),
                                    targets.reshape(B * T))
-    return losses.mean()
+    if mesh is None:
+        return losses.mean()
+    return all_reduce_mean(losses.mean(), mesh, ("dp", "sp"))
 
 
 def make_train_step(cfg: TransformerConfig, mesh=None,
@@ -284,16 +460,25 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     ``adamw(lr, weight_decay=0.01)``. ``init_opt`` marks the parameters as
     requiring grad; ``train_step`` updates them in place and returns the
     same dict, the optimizer, and the loss before the update (detached).
-    The parameters' ``.grad`` hold that step's gradients afterwards."""
-    _no_parallelism(mesh, num_microbatches)
-    return adamw_train_step(lambda params, batch: loss_fn(params, batch, cfg),
-                            learning_rate, weight_decay=0.01)
+    The parameters' ``.grad`` hold that step's gradients afterwards.
+
+    Under a mesh, ``params`` is the rank's shard (``param_shardings``) and
+    ``batch`` its dp shard; the gradients are averaged over dp and sp
+    before the update, which AdamW, being elementwise, makes on the
+    shards."""
+    _check_mesh(mesh)
+    return adamw_train_step(
+        lambda params, batch: loss_fn(params, batch, cfg, mesh,
+                                      num_microbatches=num_microbatches),
+        learning_rate, weight_decay=0.01, mesh=mesh)
 
 
 def adamw_train_step(loss: Callable[[Params, Dict[str, Any]], torch.Tensor],
-                     learning_rate: float, weight_decay: float):
+                     learning_rate: float, weight_decay: float,
+                     mesh: Mesh = None):
     """(init_opt, train_step) of ``make_train_step`` for any
-    ``loss(params, batch)`` and AdamW's weight decay."""
+    ``loss(params, batch)`` and AdamW's weight decay; under a mesh the
+    gradients are averaged over dp and sp before each update."""
 
     def init_opt(params: Params) -> torch.optim.AdamW:
         leaves = list(named_leaves(params).values())
@@ -314,6 +499,7 @@ def adamw_train_step(loss: Callable[[Params, Dict[str, Any]], torch.Tensor],
         opt_state.zero_grad(set_to_none=True)
         value = loss(params, batch)
         value.backward()
+        reduce_gradients(leaves, mesh)
         opt_state.step()
         return params, opt_state, value.detach()
 

@@ -11,8 +11,9 @@ across. Padding is XLA's SAME: at stride 2 on an even size a 3x3 kernel
 pads 0 before and 1 after, which ``padding=1`` would not give, so the pads
 are computed and applied explicitly.
 
-The data-parallel shardings (``vision_param_shardings``) come with the
-parallelism slice (A7b) of ROADMAP.md.
+Under a mesh the family trains data-parallel (``vision_param_shardings``):
+every parameter replicated, the batch split over dp, the gradients
+averaged over dp by the train step (``train.MeshTrainer``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import Device, default_device
+from .._tree import tree_map
+from ..parallel.mesh import P
 
 Params = Dict[str, Any]
 
@@ -187,3 +190,12 @@ def vision_accuracy(params: Params, batch: Dict[str, Any],
                     cfg: VisionConfig) -> torch.Tensor:
     logits = vision_apply(params, batch["images"], cfg)
     return (logits.argmax(-1) == _labels(batch, logits)).float().mean()
+
+
+def vision_param_shardings(cfg: VisionConfig, mesh) -> Params:
+    """dp training: every parameter replicated (P()), the batch split over
+    dp by the caller; convolutions this small are compute-bound per
+    example, so dp is the first axis to use."""
+    shapes = init_vision_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    return tree_map(lambda _: P(), shapes)

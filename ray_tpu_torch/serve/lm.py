@@ -31,7 +31,7 @@ order), exact for greedy requests; ``stats()["speculative"]`` reports its
 ticks, drafted, accepted and emitted tokens, and the acceptance rate.
 
 Left for a later slice, and refused here with NotImplementedError: tensor
-parallelism (``tp > 1``).
+parallelism (``tp > 1``, A7c of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ class LMBackend:
         if tp > 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) is not ported yet; it "
-                "comes with the parallelism slice of ROADMAP.md")
+                "comes with serving under tensor parallelism (A7c) of "
+                "ROADMAP.md")
         if paged:
             # Paged KV: cache memory bounded by num_pages instead of
             # max_slots * max_seq; admission queues FIFO on page budget.

@@ -1,9 +1,9 @@
 """Training library (counterpart: ``ray_tpu/train``).
 
-- ``MeshTrainer`` — one program, one device: a train step of any
-  ``(init_fn, loss_fn)`` pair with a torch optimizer, its losses kept on the
-  device until the end of ``train``. Its mesh, parameter shardings and
-  batch spec come with the parallelism slice (A7b) of ROADMAP.md.
+- ``MeshTrainer`` — a train step of any ``(init_fn, loss_fn)`` pair with a
+  torch optimizer, on one device or SPMD over a mesh (each rank its
+  parameter shard and batch block, gradients averaged over dp and sp), its
+  losses kept on the device until the end of ``train``.
 - ``TPUTrainer`` — actor-based data parallelism with elastic fault
   tolerance, the reference's TorchTrainer contract: N worker actors compute
   gradients on their data shards, the driver averages them and steps the

@@ -1192,3 +1192,57 @@ def test_tpu_trainer_on_card_counts_each_rank_s_launches(dev):
         t.shutdown()
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_mesh_forward_on_the_card_matches_one_process(dev):
+    """A 2-rank gloo world sharing the card: the f32 flagship-shaped
+    forward under tp2 and sp2 equals one process's within 1e-5 of the
+    largest logit, and the host staging of a forward moves exactly the
+    bytes the layout's collectives carry (each out and back in): tp2 the
+    embedding's and each layer's two all-reduces of [B, T, E] f32, sp2 each
+    layer's rotation of K and V [B, T/2, KH, Dh] f32."""
+    from ray_tpu_torch.models import (TransformerConfig, forward,
+                                      init_params)
+    from ray_tpu_torch.parallel import World
+
+    cfg = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+               n_kv_heads=4, d_ff=512, max_seq_len=128)
+    B, T = 2, 64
+
+    def rank(spec):
+        import torch
+        from ray_tpu_torch.models import (TransformerConfig, forward,
+                                          init_params, param_shardings)
+        from ray_tpu_torch.parallel import P, gather, make_mesh, shard
+        from ray_tpu_torch.parallel import collectives as coll
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_mesh(spec)
+        c = TransformerConfig(dtype=torch.float32, **cfg)
+        params = shard(init_params(torch.Generator(device=mesh.device)
+                                   .manual_seed(0), c, device=mesh.device),
+                       param_shardings(c, mesh), mesh)
+        tokens = torch.arange(B * T, device=mesh.device).reshape(B, T) % 512
+        with torch.no_grad():
+            coll.reset_staging()
+            logits = forward(params, shard(tokens, P("dp"), mesh), c, mesh)
+            torch.cuda.synchronize()
+            staged = dict(coll.STAGING)
+            whole = gather(logits, P("dp", "sp", "tp"), mesh)
+        return whole.cpu(), staged, str(mesh.device)
+
+    c = TransformerConfig(dtype=torch.float32, **cfg)
+    params = init_params(_gen(0), c, device=dev)
+    tokens = torch.arange(B * T, device=dev).reshape(B, T) % 512
+    with torch.no_grad():
+        want = forward(params, tokens, c).cpu()
+    E, L, Dh = c.d_model, c.n_layers, c.head_dim
+    expect = {"tp": (1 + 2 * L) * 2 * B * T * E * 4,
+              "sp": L * 2 * 2 * B * (T // 2) * c.n_kv_heads * Dh * 4}
+    with World(2) as world:
+        for axis in ("tp", "sp"):
+            for got, staged, where in world.run(rank, {axis: 2}):
+                assert where.startswith("cuda")
+                torch.testing.assert_close(
+                    got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+                assert staged["bytes"] == expect[axis], (axis, staged)
+                assert staged["copy_s"] > 0 and staged["comm_s"] > 0

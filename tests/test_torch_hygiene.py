@@ -558,7 +558,10 @@ def test_serve_package_exports_every_name_of_the_jax_serve_package():
 # checks above walk every file under ray_tpu_torch/, these included.
 _A7A_MODULES = ("train/__init__", "train/trainer", "train/mesh_trainer",
                 "parallel/__init__", "parallel/moe",
-                "models/moe_transformer", "models/vision")
+                "models/moe_transformer", "models/vision",
+                "parallel/mesh", "parallel/collectives",
+                "parallel/ring_attention", "parallel/ulysses",
+                "parallel/pipeline")
 
 
 @pytest.mark.parametrize("module", _A7A_MODULES)
@@ -569,18 +572,12 @@ def test_train_and_parallel_sources_are_checked(module):
 
 
 # What the JAX package's models, train and parallel packages export that
-# the port's do not: the meshes, shardings, collectives and the pipelined,
-# ring and Ulysses paths (names and submodules), which come with the
-# parallelism slice (A7b).
+# the port's do not: the shims over jax versions for shard_map, which have
+# no counterpart (the port's per-rank bodies take the mesh).
 _AWAITING_A7B = {
-    "ray_tpu.models": {"param_shardings", "vision_param_shardings"},
+    "ray_tpu.models": set(),
     "ray_tpu.train": set(),
-    "ray_tpu.parallel": {
-        "MeshSpec", "make_mesh", "resolve_shard_map", "shard_map_compat",
-        "ring_attention", "ring_attention_sharded", "ulysses_attention",
-        "ulysses_attention_sharded", "gpipe", "gpipe_sharded",
-        "moe_param_shardings", "collectives", "mesh", "pipeline",
-        "ulysses"},
+    "ray_tpu.parallel": {"resolve_shard_map", "shard_map_compat"},
 }
 
 
@@ -588,7 +585,7 @@ _AWAITING_A7B = {
 def test_models_train_and_parallel_export_what_the_jax_packages_do(name):
     """Every public name of the JAX package's models, train and parallel
     packages is the port's too, and each of their submodules has a file in
-    the port, but for the parallelism slice's, which are listed."""
+    the port, but for the jax-version shims, which are listed."""
     import importlib
     import types
 

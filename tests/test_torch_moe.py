@@ -6,8 +6,9 @@ gradient at f32 tolerances, the index-form dispatch against the dense
 formula it replaces, 3 train steps against optax's adamw (weight decay
 1e-4), and twins of tests/test_moe_train.py::test_moe_transformer_trains
 and the single-device tests of tests/test_parallel_ext.py::TestMoE, each
-program run through both packages (test_torch_trainer.py holds the twin of
-test_moe_train.py's log test)."""
+program run through both packages, and the twin of
+tests/test_moe_train.py::test_moe_sharded_on_mesh on an 8-rank gloo world
+(test_torch_trainer.py holds the twin of test_moe_train.py's log test)."""
 
 import jax
 import jax.numpy as jnp
@@ -262,6 +263,7 @@ def test_moe_init_params_keys_and_shapes_are_jax_s():
 
 
 def test_moe_refuses_a_mesh():
+    """A mesh must be the port's (``parallel.make_mesh``)."""
     _, tcfg = _moe_cfgs()
     params = tmt.init_params(torch.Generator().manual_seed(0), tcfg,
                              device="cpu")
@@ -270,8 +272,79 @@ def test_moe_refuses_a_mesh():
                  lambda: tmt.forward(params, tokens, tcfg, mesh=object()),
                  lambda: tmt.loss_fn(params, {"tokens": tokens}, tcfg,
                                      mesh=object())):
-        with pytest.raises(NotImplementedError, match="A7b"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
+
+
+@pytest.fixture(scope="module")
+def world8():
+    from ray_tpu_torch.parallel import World
+    with World(8, device="cpu", threads=1) as w:
+        yield w
+
+
+def test_moe_sharded_on_mesh(world8):
+    """Twin of tests/test_moe_train.py::test_moe_sharded_on_mesh on a
+    ("dp", "sp", "tp") mesh of 8 ranks, experts over tp: the loss of JAX's
+    sharded and single-device runs, the experts sharded, and every gathered
+    gradient leaf within 1e-5 of its largest magnitude of JAX's."""
+    from jax.sharding import Mesh
+
+    def rank(jparams, tokens, cfg_kw):
+        import sys
+
+        import numpy as np
+        import torch
+        from ray_tpu_torch.models import moe_transformer as tmt
+        from ray_tpu_torch.models.transformer import (named_leaves,
+                                                      params_from_numpy)
+        from ray_tpu_torch.parallel import P, gather, make_mesh, shard
+        from ray_tpu_torch.parallel.collectives import reduce_gradients
+
+        mesh = make_mesh({"dp": 2, "sp": 2, "tp": 2}, device="cpu")
+        cfg = tmt.MoETransformerConfig(dtype=torch.float32, **cfg_kw)
+        specs = tmt.param_shardings(cfg, mesh, expert_axis="tp")
+        params = shard(params_from_numpy(jparams, device="cpu"), specs, mesh)
+        shape = tuple(params["layers"]["moe"]["w_gate"].shape)
+        leaves = named_leaves(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        loss = tmt.loss_fn(params, {"tokens": shard(
+            torch.from_numpy(tokens), P("dp"), mesh)}, cfg, mesh)
+        loss.backward()
+        reduce_gradients(list(leaves.values()), mesh)
+        grads = gather(_grad_tree(params), specs, mesh)
+        assert "jax" not in sys.modules
+        return loss.item(), shape, {k: np.asarray(v) for k, v in
+                                    named_leaves(grads).items()}
+
+    def _grad_tree(tree):
+        if isinstance(tree, dict):
+            return {k: _grad_tree(v) for k, v in tree.items()}
+        return tree.grad
+
+    kw = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=4,
+              d_ff=32, max_seq_len=16, n_experts=4, top_k=2)
+    jcfg = jmt.MoETransformerConfig(dtype=jnp.float32, **kw)
+    jparams = _jinit(jax.random.PRNGKey(0), jcfg)
+    tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (4, 9), 0,
+                                           64))
+    devices = np.array(jax.devices()[:8]).reshape(2, 2, 2)
+    mesh = Mesh(devices, ("dp", "sp", "tp"))
+    sharded = jax.tree_util.tree_map(
+        jax.device_put, jparams, jmt.param_shardings(jcfg, mesh, "tp"))
+    jloss_mesh = float(jax.jit(lambda p, b: jmt.loss_fn(p, b, jcfg, mesh))(
+        sharded, {"tokens": tokens}))
+    assert np.isfinite(jloss_mesh)
+    jl, jgrads = _jloss_grad(jparams, {"tokens": jnp.asarray(tokens)}, jcfg)
+    want = named_leaves(_np_tree(jgrads))
+    for loss, shape, grads in world8.run(rank, _np_tree(jparams), tokens, kw):
+        assert abs(loss - jloss_mesh) < 1e-5 and abs(loss - float(jl)) < 1e-5
+        assert shape == (2, 2, 32, 32)          # [L, N/tp, E, F]
+        assert sorted(grads) == sorted(want)
+        for name, g in want.items():
+            err = np.abs(grads[name] - g).max() / np.abs(g).max()
+            assert err < 1e-5, (name, err)
 
 
 # ---------------------------------------------------------------- twins

@@ -3,7 +3,8 @@ tests/test_train.py's TPUTrainer tests and single-device MeshTrainer tests,
 each program run through ``ray_tpu`` and then through ``ray_tpu_torch`` (a
 fresh local runtime each) on the same numpy-seeded batches; 5 steps of each
 trainer against JAX's (optax.adamw at weight decay 1e-4) with the
-parameters held within 1e-5; the refusals of a mesh; the launch
+parameters held within 1e-5; the twin of its sharded dp=8 test on an
+8-rank gloo world, and the refusals of what is not a mesh; the launch
 counters' atomic increments under threads; and the twin of
 tests/test_moe_train.py::test_worker_logs_reach_driver."""
 
@@ -304,13 +305,101 @@ def test_mesh_trainer_restore_continues_the_optimizer(tmp_path):
     assert t2.state.step == 8
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"param_shardings": {}},
-                                {"batch_spec": ("dp",)}],
+@pytest.mark.parametrize("kw,err", [({"mesh": object()}, TypeError),
+                                    ({"param_shardings": {}}, ValueError),
+                                    ({"batch_spec": ("dp",)}, ValueError)],
                          ids=["mesh", "param_shardings", "batch_spec"])
-def test_mesh_trainer_refuses_a_mesh(kw):
-    with pytest.raises(NotImplementedError, match="A7b"):
+def test_mesh_trainer_refuses_a_mesh(kw, err):
+    """A mesh must be the port's (``parallel.make_mesh``); shardings and a
+    batch spec without one are refused, not ignored."""
+    with pytest.raises(err, match="mesh|Mesh"):
         TMeshTrainer(_tinit, _tloss, device="cpu", **kw)
+
+
+# ------------------------------------------------- MeshTrainer on a mesh
+
+
+@pytest.fixture(scope="module")
+def world8():
+    from ray_tpu_torch.parallel import World
+    with World(8, device="cpu", threads=1) as w:
+        yield w
+
+
+def test_sharded_dp_training(world8, tmp_path):
+    """Twin of tests/test_train.py::TestMeshTrainer::test_sharded_dp_training:
+    30 steps over dp=8 (every rank given the whole batch, keeping its
+    block) learn the regression as JAX's do: the same mean loss and
+    parameters within 1e-5 on every rank; the checkpoint restores on the
+    mesh (the next step the same) and on one device."""
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    def _dp8_rank(dim, true_w, steps, path):
+        """On every rank: the regression MeshTrainer over dp=8 (replicated
+        parameters, batches split by P("dp")), ``steps`` steps on the seed-0
+        batches, then save to ``path`` (rank 0 writes). Nested helpers only:
+        it travels by value, defined in the test."""
+        import sys
+
+        import numpy as np
+        import torch
+        from ray_tpu_torch.parallel import P, make_mesh
+        from ray_tpu_torch.train import MeshTrainer
+
+        def init(gen):
+            return {"w": torch.zeros(dim), "b": torch.zeros(())}
+
+        def loss(params, batch):
+            pred = batch["x"] @ params["w"] + params["b"]
+            return torch.mean((pred - batch["y"]) ** 2)
+
+        def batches(seed):
+            rng = np.random.default_rng(seed)
+            while True:
+                x = rng.standard_normal((32, dim)).astype(np.float32)
+                yield {"x": x, "y": x @ true_w + 0.5}
+
+        mesh = make_mesh({"dp": 8}, device="cpu")
+        t = MeshTrainer(init, loss, learning_rate=0.1, mesh=mesh,
+                        param_shardings={"w": P(), "b": P()},
+                        batch_spec=P("dp"))
+        stats = t.train(batches(0), num_steps=steps)
+        val = t.evaluate(batches(7), num_batches=2)
+        w = t.state.params["w"].detach().numpy().copy()
+        t.save(path)
+        again = MeshTrainer(init, loss, learning_rate=0.1, mesh=mesh,
+                            param_shardings={"w": P(), "b": P()},
+                            batch_spec=P("dp"))
+        again.restore(path)
+        assert again.state.step == steps
+        assert torch.equal(again.state.params["w"], t.state.params["w"])
+        nxt = next(batches(9))
+        assert again.train_step(nxt) == t.train_step(nxt)
+        assert "jax" not in sys.modules
+        return stats["loss"], val["val_loss"], w
+
+    from ray_tpu.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(dp=8, pp=1, sp=1, tp=1))
+    jt = JMeshTrainer(_jinit, _jloss, learning_rate=0.1, mesh=mesh,
+                      param_shardings={"w": NamedSharding(mesh, JP()),
+                                       "b": NamedSharding(mesh, JP())},
+                      batch_spec=JP("dp"))
+    jstats = jt.train(_data(ray_tpu, 0), num_steps=30)
+    jw = np.asarray(jt.state.params["w"])
+    assert jstats["loss"] < 2.0
+    path = str(tmp_path / "dp8.pkl")
+    ranks = world8.run(_dp8_rank, DIM, TRUE_W, 30, path)
+    for loss, val, w in ranks:
+        assert loss < 2.0 and val < 3.0
+        assert abs(loss - jstats["loss"]) < 1e-5
+        assert np.abs(w - TRUE_W).mean() < 0.5
+        np.testing.assert_allclose(w, jw, atol=1e-5)
+        np.testing.assert_array_equal(w, ranks[0][2])
+    one = _mesh_trainer(ray_tpu_torch)
+    one.restore(path)
+    assert one.state.step == 30
+    np.testing.assert_array_equal(_np(one.state.params["w"]), ranks[0][2])
 
 
 @pytest.mark.parametrize("make", ["MeshTrainer", "TPUTrainer"])

@@ -4,7 +4,8 @@ kernels to OIHW): logits, loss and every gradient at the reference test's
 config (stride-2 blocks and 1x1 projections), XLA's SAME padding at stride
 2, GroupNorm, the carried layout's round trip, and twins of
 tests/test_vision.py's single-device tests, each program run through both
-packages (the port's trains through its MeshTrainer on the CPU)."""
+packages (the port's trains through its MeshTrainer on the CPU), and the
+twin of its dp-sharded step on an 8-rank gloo world."""
 
 import functools
 
@@ -225,3 +226,81 @@ def test_learns_quadrant_task():
                                 _torch_batch(test_batch), tcfg).item()
     assert jacc > 0.9, jacc
     assert tacc > 0.9, tacc
+
+
+@pytest.fixture(scope="module")
+def world8():
+    from ray_tpu_torch.parallel import World
+    with World(8, device="cpu", threads=1) as w:
+        yield w
+
+
+def test_dp_sharded_step_matches_single_device(world8):
+    """Twin of tests/test_vision.py::test_dp_sharded_step_matches_single_device
+    on an 8-rank gloo world: the parameters replicated by
+    ``vision_param_shardings``, the 16 images split over dp=8; the mean of
+    the ranks' losses within 1e-5 of JAX's single-device and sharded
+    losses, and every gradient, averaged over dp as the train step does,
+    within 1e-5 of its largest magnitude of JAX's."""
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    from ray_tpu.parallel.mesh import MeshSpec, make_mesh
+
+    def rank(jparams, batch, cfg_kw):
+        import sys
+
+        import numpy as np
+        import torch
+        from ray_tpu_torch.models import vision as tvis
+        from ray_tpu_torch.models.transformer import named_leaves
+        from ray_tpu_torch.parallel import P, gather, make_mesh, shard
+        from ray_tpu_torch.parallel.collectives import (all_reduce_mean,
+                                                        reduce_gradients)
+
+        mesh = make_mesh({"dp": 8}, device="cpu")
+        cfg = tvis.VisionConfig(**cfg_kw)
+        specs = tvis.vision_param_shardings(cfg, mesh)
+        params = shard(tvis.vision_params_from_numpy(jparams, device="cpu"),
+                       specs, mesh)
+        leaves = named_leaves(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        local = shard({k: torch.from_numpy(v) for k, v in batch.items()},
+                      P("dp"), mesh)
+        loss = all_reduce_mean(tvis.vision_loss(params, local, cfg), mesh,
+                               "dp")
+        loss.backward()
+        reduce_gradients(list(leaves.values()), mesh)
+        grads = gather({k: t.grad for k, t in leaves.items()},
+                       {k: P() for k in leaves}, mesh)
+        assert "jax" not in sys.modules
+        return loss.item(), {k: np.asarray(v) for k, v in grads.items()}
+
+    jcfg, _ = _cfgs()
+    params = _jinit(jax.random.PRNGKey(0), jcfg)
+    batch = _quadrant_batch(jax.random.PRNGKey(1), jcfg, n=16)
+    ref = float(jax.jit(lambda p, b: jvis.vision_loss(p, b, jcfg))(params,
+                                                                   batch))
+    mesh = make_mesh(MeshSpec(dp=8, pp=1, sp=1, tp=1), jax.devices()[:8])
+    p_sharded = jax.device_put(params, jvis.vision_param_shardings(jcfg,
+                                                                   mesh))
+    b_sharded = jax.device_put(
+        batch, {"images": NamedSharding(mesh, JP("dp")),
+                "labels": NamedSharding(mesh, JP("dp"))})
+    got_jax = float(jax.jit(lambda p, b: jvis.vision_loss(p, b, jcfg))(
+        p_sharded, b_sharded))
+    assert got_jax == pytest.approx(ref, abs=1e-5)
+    jgrads = jax.jit(jax.grad(jvis.vision_loss), static_argnums=2)(
+        params, batch, jcfg)
+    want = named_leaves(_np_tree(jgrads))
+    for loss, grads in world8.run(rank, _np_tree(params), _np_tree(batch),
+                                  _CFG):
+        assert loss == pytest.approx(ref, abs=1e-5)
+        assert loss == pytest.approx(got_jax, abs=1e-5)
+        assert sorted(grads) == sorted(want)
+        for name, g in want.items():
+            got = grads[name]
+            if got.ndim == 4:
+                got = got.transpose(2, 3, 1, 0)       # OIHW -> HWIO
+            err = np.abs(got - g).max() / np.abs(g).max()
+            assert err < 1e-5, (name, err)
