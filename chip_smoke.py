@@ -240,7 +240,29 @@ it fails:
    process taking the batch in the same two halves (and the distance to
    its whole-batch gradients printed); (e) Ulysses in
    bf16 at [8, 2048, 16, 64] over sp2: exactly one K3, K4 and K5 a rank,
-   out and gradients against one flash_attention.
+   out and gradients against one flash_attention;
+15. serving under tensor parallelism: one process first reruns phases 3,
+   3b and 3c's traffic (the same tokens) and keeps the top-2 gap of every
+   greedy token and the logits of every sampled draw; then one world of 2
+   rank processes on the card, each with its engine over a ("tp",) mesh
+   (8 of the 16 kv heads a rank, phase 3's weights from the seed): (a) the
+   contiguous engine on phase 3's 12 greedy, sampled and streamed
+   requests, (b) the paged engine on phase 3b's shared-prefix requests
+   and chunked prefill, (c) both engines with speculative_k=4 on phase
+   3c's quoting requests, each tick's launches read in each rank (17 K1
+   and 8 K6, 8 K7 paged, a verify pass K1 only), the caches and pools at
+   8 heads, the ranks' logits bit-equal every tick, and every rank's
+   tokens equal to one process's but where the first difference lies at
+   a near tie (FLIP_ULPS bf16 ulps; a sampled draw within what they can
+   move an edge of its interval); (d) an f32 witness at depth 2: every
+   token equal to one process's, logits within the f32 reorder bound;
+   (e) LMBackend(tp=2) behind serve, contiguous (tokens equal to (a)'s)
+   and paged with speculative_k=3 (held to one process's as (b)), a
+   handle and a stream, the card's memory back by both ranks' KV stores
+   after each backend goes; it prints the tick wall at tp2 against one
+   process's, the bytes staged and the shares of gloo and pinned copies a
+   tick, the worlds' start-up, and K6 and K7 at 8 heads beside their
+   bound.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -995,7 +1017,7 @@ def main_path(params, cfg) -> dict:
     check_launches_each(probe.prefill_launches + probe.tick_launches, L,
                         "prefill or tick")
     return {"launches": launches, "probe": probe, "backend": backend,
-            "outs": outs}
+            "outs": outs, "sampled": s1}
 
 
 def check_launches_each(per_run, L: int, what: str) -> None:
@@ -1149,7 +1171,7 @@ def paged_path(params, cfg) -> dict:
         f"decode_attention, 1 rms_norm and {2 * L} add_rms_norm")
     return {"launches": launches, "probe": probe_a, "backend": backend,
             "contig": contig.engine, "contig_probe": contig_probe,
-            "want_shared": want_shared}
+            "want_shared": want_shared, "out_long": out_long}
 
 
 # ------------------------------ phase 3c: speculative serving, both engines
@@ -2740,6 +2762,9 @@ class Server:
         eng = self.backend.engine
         return eng.cache_k.nbytes + eng.cache_v.nbytes
 
+    def engine_id(self) -> int:
+        return id(self.backend.engine)
+
     def __ray_shutdown__(self):
         """kill() frees the engine's cache and workspace: the probe holds
         the engine too."""
@@ -2940,6 +2965,7 @@ def runtime_path(params, cfg, main: dict, card: str) -> int:
         raise AssertionError(f"(c) the GPU task did not wait: ready {ready}, "
                              f"row {row}")
     cache_bytes = rt.get(server.cache_bytes.remote())
+    engine_id = rt.get(server.engine_id.remote())
     torch.cuda.synchronize()
     mem_held = torch.cuda.memory_allocated()
     reset_counts()
@@ -2950,6 +2976,10 @@ def runtime_path(params, cfg, main: dict, card: str) -> int:
     torch.cuda.synchronize()
     freed = mem_held + k1_out.nbytes - torch.cuda.memory_allocated()
     if freed < cache_bytes:
+        held = [o for o in gc.get_objects() if id(o) == engine_id]
+        log(f"  (c) the actor's engine still alive: {bool(held)}; its "
+            f"referrers: {[type(r).__name__ for e in held
+                           for r in gc.get_referrers(e)]}")
         raise AssertionError(
             f"(c) kill() freed {freed} bytes of device memory, less than "
             f"the actor's KV cache ({cache_bytes})")
@@ -3115,6 +3145,10 @@ def runtime_path(params, cfg, main: dict, card: str) -> int:
 SERVE_CONFIG = dict(max_batch_size=8, batch_wait_timeout_s=0.05,
                     max_concurrent_queries=16, replica_concurrency=8)
 SERVE_CALLS, DRAIN_TOKENS = 1000, 512
+# (e)'s drain limit: its two streams decode on two pumps in this one
+# process, about 17-35 s on the chip machine, so serve's default 30 s could
+# retire the replica while its stream still runs.
+DRAIN_TIMEOUT_S = 120.0
 SERVE_THREADS = ("serve-reconcile", "serve-http", "lm-engine-pump")
 
 
@@ -3419,20 +3453,31 @@ def serve_checks(params, cfg, main: dict, paged: dict, direct_growth: int,
                              f"expected one on each")
     mem_before = mem_now()
     scaler = threading.Thread(target=serve.update_backend_config, args=(
-        "lm:contig", {"num_replicas": 1}), name="scale-down")
+        "lm:contig", {"num_replicas": 1, "drain_timeout_s": DRAIN_TIMEOUT_S}),
+        name="scale-down")
     scaler.start()
     wait_until("(e) the retired replica draining", lambda: rt.get(
         router.stats.remote())["backends"]["lm:contig"]["draining"] == 1,
         timeout=60)
-    streams = []
+    streams, t_drain, polls = [], time.perf_counter(), []
     for tok in tokens:
         got, done = [], False
         while not done:
-            out = rt.get(router.route.remote("gen", "stream_poll", (tok,),
-                                             {"wait_s": 2.0}), timeout=600)
+            try:
+                out = rt.get(router.route.remote(
+                    "gen", "stream_poll", (tok,), {"wait_s": 2.0}),
+                    timeout=600)
+            except Exception:
+                log(f"  (e) stream {len(streams)} failed after "
+                    f"{len(got)} tokens, {time.perf_counter() - t_drain:.3f}"
+                    f" s into the drain; the streams before it: {polls}")
+                raise
             got, done = got + out["tokens"], out["done"]
+            polls.append((len(streams), len(out["tokens"]),
+                          round(time.perf_counter() - t_drain, 3)))
         streams.append(got)
-    scaler.join(120)
+    scaler.join(DRAIN_TIMEOUT_S)
+    drain_s = time.perf_counter() - t_drain
     if scaler.is_alive():
         raise AssertionError("(e) the scale-down did not end")
     retired_freed = mem_before - mem_now()
@@ -3446,7 +3491,11 @@ def serve_checks(params, cfg, main: dict, paged: dict, direct_growth: int,
                              f"{retired.closed}")
     log(f"  (e) scale-down to 1 while two {DRAIN_TOKENS}-token streams were "
         f"pinned, one to each replica: the drain waited for the retired "
-        f"one's, both equal their whole responses; the retired replica "
+        f"one's ({drain_s:.3f} s of its {DRAIN_TIMEOUT_S:.0f} s limit; "
+        f"streams done at "
+        f"{[t for i, n, t in polls if i == 0][-1]:.3f} and {polls[-1][2]:.3f}"
+        f" s, in {len(polls)} polls), both equal their whole responses; "
+        f"the retired replica "
         f"closed and freed {retired_freed / 2**20:.1f} MiB (its cache "
         f"{retired.cache_bytes / 2**20:.1f} MiB)")
 
@@ -5645,6 +5694,678 @@ def mesh_path(train: dict, moe: dict, card: str) -> dict:
     return ranks[0]
 
 
+# ---------------- phase 15: serving under tensor parallelism (A7c)
+
+TP_RANKS = 2
+TP_DEVICE = "cuda"     # the ranks' device (a CPU rehearsal sets "cpu")
+TP_F32_LAYERS = 2      # (d): the flagship's widths at this depth, in f32
+TP_F32_SEED = SEED + 30
+
+
+def _f32_reorder_bound() -> float:
+    """(d)'s bound on max |tp2 logits - one process's| / max |one
+    process's|. An f32 sum of n terms taken in another order moves by at
+    most 2 gamma_n of the sum of the terms' magnitudes (gamma_n = n u, u =
+    2^-24); tp2 reorders, on the way to a logit, the vocab-parallel
+    embedding's sum, each layer's wo (H * Dh terms) and w_down (d_ff)
+    products, and the head's (d_model), so the bound is that of d_ff, the
+    longest of them, once for each: (2 L + 2) 2 d_ff u, taking the terms'
+    magnitudes to sum to the largest logit's and the norms between them to
+    pass a relative error through unchanged."""
+    n = FLAGSHIP["d_ff"]
+    return (2 * TP_F32_LAYERS + 2) * 2 * n * 2.0 ** -24
+
+
+def tp_gen(seed: int) -> torch.Generator:
+    return torch.Generator(device=TP_DEVICE).manual_seed(seed)
+
+
+def tp_rank_entry(job: str, card: str):
+    """What the tp world runs in each rank: this script imported as a
+    module there (the function travels by value, and this one names
+    nothing of the script), then its ``tp_rank``."""
+    import chip_smoke
+    return chip_smoke.tp_rank(job, card)
+
+
+def run_engine(eng, reqs) -> list:
+    """Each (prompt, max_new_tokens, kwargs) submitted, then every request
+    run to its end; the outputs in order."""
+    ids = [eng.submit(p, n, **kw) for p, n, kw in reqs]
+    res = eng.run_until_done()
+    return [res[i] for i in ids]
+
+
+def logits_digest(logits: torch.Tensor) -> str:
+    return hashlib.sha1(logits.float().cpu().numpy().tobytes()).hexdigest()
+
+
+class TpStaging:
+    """Mixed into a probe of a rank's engine: each decode tick's bytes
+    staged through pinned host memory and seconds copying and in gloo
+    (``collectives.STAGING``), and a digest of its full logits, so the
+    ranks' logits can be held bit-equal; with ``keep``, the logits too."""
+
+    def __init__(self, eng, keep: bool = False):
+        super().__init__(eng)
+        self.staging, self.digests, self.logits = [], [], []
+        self.keep = keep
+
+    def decode(self):
+        from ray_tpu_torch.parallel.collectives import STAGING
+        before = dict(STAGING)
+        logits = super().decode()
+        self.staging.append({k: STAGING[k] - before[k] for k in STAGING})
+        self.digests.append(logits_digest(logits))
+        if self.keep:
+            self.logits.append(logits.float().cpu().numpy())
+        return logits
+
+
+class TpProbe(TpStaging, PathProbe):
+    pass
+
+
+class TpPagedProbe(TpStaging, PagedProbe):
+    pass
+
+
+def tp_tick_report(probes) -> dict:
+    """Full-slot ticks of a rank's probes: walls, staged bytes, seconds in
+    copies and in gloo."""
+    rows = [(ms, st) for pr in probes
+            for (active, ms), st in zip(pr.ticks, pr.staging)
+            if active == SLOTS]
+    return {"tick_ms": [ms for ms, _ in rows],
+            "bytes": [st["bytes"] for _, st in rows],
+            "copy_ms": [st["copy_s"] * 1e3 for _, st in rows],
+            "comm_ms": [st["comm_s"] * 1e3 for _, st in rows],
+            "calls": [st["calls"] for _, st in rows],
+            "lens": [pr.tick_lengths[i][1].tolist() for pr in probes
+                     for i, (active, _) in enumerate(pr.ticks)
+                     if active == SLOTS]}
+
+
+def tp_contiguous(params, mesh, cfg) -> dict:
+    """(a) in a rank: phase 3's traffic through the contiguous engine over
+    the tp mesh, each tick's launches from this rank's counters."""
+    from ray_tpu_torch.parallel.collectives import reset_staging
+    L, V = cfg.n_layers, cfg.vocab_size
+    eng = engine_mod.GenerationEngine(params, cfg, max_slots=SLOTS,
+                                      max_seq=MAX_SEQ, mesh=mesh)
+    run_engine(eng, [([1, 2, 3], 4, {})])   # warm-up, as phase 3's
+    probe = TpProbe(eng)
+    prompts = serving_prompts(V)
+    reset_counts()
+    reset_staging()
+    outs = run_engine(eng, [(p, NEW_TOKENS, {}) for p in prompts])
+    sample = (prompts[3], 16, {"temperature": 0.8, "seed": 42})
+    sampled = [run_engine(eng, [sample])[0] for _ in range(2)]
+    rid = eng.submit(prompts[0], NEW_TOKENS)
+    streamed = []
+    while eng.queue or any(r is not None for r in eng.active):
+        streamed += [t for r, t, _ in eng.step() if r == rid]
+    eng.done.pop(rid)
+    launches = read_counts()
+    per_tick = {n_: 0 for n_ in COUNTED}
+    per_tick.update(rms_norm=1, add_rms_norm=2 * L, decode_attention=L)
+    for i, got in enumerate(probe.tick_launches):
+        if got != per_tick:
+            raise AssertionError(f"(a) tick {i}: launches {got}, expected "
+                                 f"{per_tick}")
+    check_launches_each(probe.prefill_launches, L, "(a) prefill")
+    n = len(probe.prefills) + len(probe.ticks)
+    want = {n_: 0 for n_ in COUNTED}
+    want.update(rms_norm=n, add_rms_norm=2 * L * n,
+                decode_attention=L * len(probe.ticks))
+    if launches != want:
+        raise AssertionError(f"(a) launches {launches}, expected {want}")
+    return {"outs": outs, "sampled": sampled, "streamed": streamed,
+            "kv": tuple(eng.cache_k.shape), "ticks": len(probe.ticks),
+            "prefills": len(probe.prefills), "launches": launches,
+            "digests": probe.digests, **tp_tick_report([probe])}
+
+
+def tp_paged(params, mesh, cfg) -> dict:
+    """(b) in a rank: phase 3b's 16 shared-prefix requests on the default
+    pool and its chunked prefill, through the paged engine over the tp
+    mesh."""
+    from ray_tpu_torch.parallel.collectives import reset_staging
+    L, V = cfg.n_layers, cfg.vocab_size
+    _, _, shared, long_prompt = paged_traffic(V)
+    eng = paged_mod.PagedGenerationEngine(params, cfg, max_slots=SLOTS,
+                                          max_seq=MAX_SEQ, page_size=PAGE,
+                                          mesh=mesh)
+    chunked = paged_mod.PagedGenerationEngine(
+        params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+        prefill_chunk=CHUNK, mesh=mesh)
+    probes = (TpPagedProbe(eng), TpPagedProbe(chunked))
+    reset_counts()
+    reset_staging()
+    outs = run_engine(eng, [(p, NEW_TOKENS, {}) for p in shared])
+    hits = eng._prefix_hits(shared[0])
+    out_long = run_engine(chunked, [(long_prompt, 64, {})])[0]
+    launches = read_counts()
+    total = check_paged_launches(probes, L)
+    if total != launches:
+        raise AssertionError(f"(b) launches {launches} != the prefills' and "
+                             f"ticks' {total}")
+    return {"outs": outs, "out_long": out_long, "hits": hits,
+            "shared": max(probes[0].shared), "pool": tuple(eng.k_pages.shape),
+            "ticks": sum(len(p.ticks) for p in probes), "launches": launches,
+            "digests": probes[0].digests + probes[1].digests,
+            **tp_tick_report(probes)}
+
+
+def tp_spec(params, mesh, cfg) -> dict:
+    """(c) in a rank: phase 3c's quoting traffic through both engines with
+    speculative_k=4 over the tp mesh; every verify pass K1 only, every
+    draft-less paged tick K1 and K7."""
+    L, V = cfg.n_layers, cfg.vocab_size
+    quoting = spec_traffic(V)["quoting"]
+    out = {}
+    for name, cls, kw in (
+            ("contiguous", engine_mod.GenerationEngine, {}),
+            ("paged", paged_mod.PagedGenerationEngine,
+             dict(page_size=PAGE))):
+        eng = cls(params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                  speculative_k=SPEC_K, speculative_ngram=SPEC_NGRAM,
+                  mesh=mesh, **kw)
+        pr = SpecProbe(eng)
+        reset_counts()
+        toks = run_engine(eng, [(p, QUOTE_NEW, {}) for p in quoting])
+        launches = read_counts()
+        total = check_spec_launches(pr, L, name == "paged")
+        if total != launches:
+            raise AssertionError(f"(c) {name}: launches {launches} != the "
+                                 f"passes' {total}")
+        kinds = [k for k, _ in pr.passes]
+        out[name] = {"out": toks, "stats": dict(eng.spec_stats),
+                     "verify": kinds.count("verify"),
+                     "decode": kinds.count("decode"), "launches": launches}
+    return out
+
+
+def tp_f32(mesh, dev) -> dict:
+    """(d) in a rank: the f32 witness, phase 3's 12 greedy requests at the
+    flagship's widths and TP_F32_LAYERS layers; rank 0 keeps every decode
+    tick's logits."""
+    import torch.distributed as dist
+    cfg = TransformerConfig(dtype=torch.float32,
+                            **dict(FLAGSHIP, n_layers=TP_F32_LAYERS))
+    params = init_params(tp_gen(TP_F32_SEED), cfg, device=dev)
+    eng = engine_mod.GenerationEngine(params, cfg, max_slots=SLOTS,
+                                      max_seq=MAX_SEQ, mesh=mesh)
+    del params
+    probe = TpProbe(eng, keep=dist.get_rank() == 0)
+    outs = run_engine(eng, [(p, NEW_TOKENS, {})
+                            for p in serving_prompts(cfg.vocab_size)])
+    return {"outs": outs, "digests": probe.digests,
+            "logits": probe.logits, "kv": tuple(eng.cache_k.shape)}
+
+
+def tp_rank(job: str, card: str):
+    """Phase 15 in one rank of the tp world: build the flagship's weights
+    from phase 3's seed ("params"), then (a)-(d) one call each."""
+    from ray_tpu_torch.parallel import make_mesh, rank_state
+    from ray_tpu_torch.parallel.mesh import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device()
+    state = rank_state()
+    mesh = make_mesh({"tp": TP_RANKS})
+    cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
+    t0 = time.perf_counter()
+    if job == "hello":
+        return str(dev)
+    if job == "params":
+        state["tp_params"] = init_params(tp_gen(SEED), cfg, device=dev)
+        return {"checksum": params_checksum(state["tp_params"])}
+    with torch.inference_mode():
+        if job == "d":
+            state.pop("tp_params", None)
+            out = tp_f32(mesh, dev)
+        else:
+            run = {"a": tp_contiguous, "b": tp_paged, "c": tp_spec}[job]
+            out = run(state["tp_params"], mesh, cfg)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def params_checksum(params) -> list:
+    return [float(t.double().sum()) for t in named_leaves(params).values()]
+
+
+class GapProbe(SpecProbe):
+    """One process's reference run for phase 15: the top-2 gap and top
+    logit of every greedy token it picks (prefill, decode and verify
+    passes) and every logits row a sampling request draws from, by
+    (prompt, index in the output). Used as a context manager: inside,
+    ``_Request.pick`` is wrapped to see the prefills' and the sampling
+    requests' rows."""
+
+    def __init__(self, eng):
+        super().__init__(eng, gaps=True)
+        self.rows = {}
+
+    def verify(self, chunk):
+        logits = super().verify(chunk)
+        top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+        for s, r in enumerate(self.eng.active):
+            if r is not None and r.temperature == 0:
+                for i in range(chunk.shape[1]):
+                    self.gaps[tuple(r.prompt), len(r.out) + i] = (
+                        float(top[s, i, 0] - top[s, i, 1]),
+                        float(top[s, i, 0]))
+        return logits
+
+    def __enter__(self):
+        self._pick = orig = engine_mod._Request.pick
+        probe = self
+
+        def pick(req, row):
+            key = (tuple(req.prompt), len(req.out))
+            if req.temperature == 0:
+                lo, hi = np.partition(row, -2)[-2:]
+                probe.gaps[key] = (float(hi - lo), float(hi))
+            else:
+                probe.rows[key] = (np.array(row, np.float32),
+                                   req.temperature)
+            return orig(req, row)
+
+        engine_mod._Request.pick = pick
+        return self
+
+    def __exit__(self, *exc):
+        engine_mod._Request.pick = self._pick
+
+
+def sampled_flip(name: str, got: list, want: list, prompt: list, seed: int,
+                 rows: dict) -> None:
+    """A seeded sampled request's tokens against one process's: at the
+    first difference the draw must lie within what FLIP_ULPS bf16 ulps of
+    the top logit can move the edges of the drawn token's interval of the
+    cumulative distribution (every logit moved by eps moves every
+    probability by a factor within exp(+-2 eps / T), so every edge by less
+    than expm1(2 eps / T)); else the run fails."""
+    if got == want:
+        return
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    if (tuple(prompt), j) not in rows or j >= len(want):
+        raise AssertionError(f"{name}: the sampled request differs at token "
+                             f"{j}, where one process's row is not known")
+    row, T = rows[tuple(prompt), j]
+    z = row.astype(np.float64) / T
+    p = np.exp(z - z.max())
+    cdf = np.cumsum(p / p.sum())
+    cdf /= cdf[-1]
+    u = np.random.default_rng(seed).random(j + 1)[j]
+    t = want[j]
+    if int(np.searchsorted(cdf, u, side="right")) != t:
+        raise AssertionError(f"{name}: the replayed draw does not give one "
+                             f"process's token {t}")
+    margin = min(u - (cdf[t - 1] if t else 0.0), cdf[t] - u)
+    reach = math.expm1(2 * FLIP_ULPS * ulp_bf16(float(row.max())) / T)
+    log(f"  {name}: the sampled request differs from one process's at token "
+        f"{j}: the draw {u:.6g} lies {margin:.3g} from an edge of token "
+        f"{t}'s interval, reach {reach:.3g} ({FLIP_ULPS} bf16 ulps)")
+    if not margin < reach:
+        raise AssertionError(f"{name}: a sampled token differs where the "
+                             f"draw is {margin} from an edge, not under "
+                             f"{reach}")
+
+
+def tp_references(params, cfg, main: dict, paged: dict, spec: dict) -> dict:
+    """One process's runs of (a)-(c)'s traffic on the card, each held equal
+    to its phase's tokens (the same engine on the same requests gives the
+    same bits), under GapProbes: the near ties the tp runs are held to."""
+    V = cfg.vocab_size
+    common = dict(max_slots=SLOTS, max_seq=MAX_SEQ, device=TP_DEVICE)
+    prompts = serving_prompts(V)
+    _, _, shared, long_prompt = paged_traffic(V)
+    quoting = spec_traffic(V)["quoting"]
+    refs = {}
+    with torch.inference_mode():
+        eng = engine_mod.GenerationEngine(params, cfg, **common)
+        run_engine(eng, [([1, 2, 3], 4, {})])
+        with GapProbe(eng) as g:
+            outs = run_engine(eng, [(p, NEW_TOKENS, {}) for p in prompts])
+            sampled = run_engine(eng, [(prompts[3], 16, {
+                "temperature": 0.8, "seed": 42})])[0]
+        refs["a"] = {"outs": outs, "sampled": sampled, "gaps": g.gaps,
+                     "rows": g.rows}
+        if outs != main["outs"] or sampled != main["sampled"]:
+            raise AssertionError("one process's rerun of phase 3's traffic "
+                                 "differs from phase 3's tokens")
+        del eng, g
+        eng = paged_mod.PagedGenerationEngine(params, cfg, page_size=PAGE,
+                                              **common)
+        chunked = paged_mod.PagedGenerationEngine(
+            params, cfg, page_size=PAGE, prefill_chunk=CHUNK, **common)
+        with GapProbe(eng) as g, GapProbe(chunked) as gc_:
+            outs = run_engine(eng, [(p, NEW_TOKENS, {}) for p in shared])
+            out_long = run_engine(chunked, [(long_prompt, 64, {})])[0]
+        refs["b"] = {"outs": outs, "out_long": out_long,
+                     "gaps": {**g.gaps, **gc_.gaps}}
+        if outs != paged["want_shared"] or out_long != paged["out_long"]:
+            raise AssertionError("one process's rerun of phase 3b's traffic "
+                                 "differs from phase 3b's tokens")
+        del eng, chunked, g, gc_
+        for name, cls, kw in (
+                ("contiguous", engine_mod.GenerationEngine, {}),
+                ("paged", paged_mod.PagedGenerationEngine,
+                 dict(page_size=PAGE))):
+            eng = cls(params, cfg, speculative_k=SPEC_K,
+                      speculative_ngram=SPEC_NGRAM, **common, **kw)
+            with GapProbe(eng) as g:
+                outs = run_engine(eng, [(p, QUOTE_NEW, {}) for p in quoting])
+            if outs != spec["runs"][name]["out"]["a"]:
+                raise AssertionError(f"one process's rerun of phase 3c's "
+                                     f"traffic (a), {name}, differs from "
+                                     f"phase 3c's tokens")
+            refs["c", name] = {"outs": outs, "gaps": g.gaps}
+            del eng, g
+    gc.collect()
+    if TP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return refs
+
+
+def tp_f32_reference(card: str) -> dict:
+    """(d)'s yardstick: one process's f32 engine at the same depth and
+    seed, every decode tick's logits kept."""
+    cfg = TransformerConfig(dtype=torch.float32,
+                            **dict(FLAGSHIP, n_layers=TP_F32_LAYERS))
+    params = init_params(tp_gen(TP_F32_SEED), cfg, device=TP_DEVICE)
+    with torch.inference_mode():
+        eng = engine_mod.GenerationEngine(params, cfg, max_slots=SLOTS,
+                                          max_seq=MAX_SEQ, device=TP_DEVICE)
+        probe = TpProbe(eng, keep=True)
+        outs = run_engine(eng, [(p, NEW_TOKENS, {})
+                                for p in serving_prompts(cfg.vocab_size)])
+    return {"outs": outs, "logits": probe.logits}
+
+
+def tp_equal_ranks(what: str, ranks: list, keys) -> dict:
+    for k in keys:
+        if any(r[k] != ranks[0][k] for r in ranks[1:]):
+            raise AssertionError(f"{what}: the ranks disagree on {k}")
+    return ranks[0]
+
+
+def tp_kernel_times(lens: list, card: str) -> dict:
+    """K6 and K7 a launch at a rank's 8 heads (H = KH = 8, D 64) on one
+    tick's lengths of (a), each beside its bound (bytes over the HBM
+    rate)."""
+    bf16 = torch.bfloat16
+    B, D = SLOTS, FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    H = KH = FLAGSHIP["n_kv_heads"] // TP_RANKS
+    live = sum(n + 1 for n in lens)
+    pages = sum(-(-(n + 1) // PAGE) for n in lens)
+    kv_bytes = 2 * live * KH * D * 2 + 2 * B * H * D * 2 + 4 * B
+    k6, k7 = [], []
+    for i in range(n_copies(2 * live * KH * D * 2)):
+        k6.append(decode_inputs(B, H, KH, D, MAX_SEQ, list(lens), bf16,
+                                seed=1500 + i))
+        q, kp, vp, table, ln = paged_inputs(B + 1, H, KH, D, PAGE,
+                                            MAX_SEQ // PAGE,
+                                            list(lens) + [0], bf16,
+                                            seed=1600 + i)
+        k7.append((q[:B].contiguous(), kp, vp, table[:B], ln[:B]))
+    out = {"decode_attention": dict(
+        ms=device_ms("decode_attention at 8 heads",
+                     attention.decode_attention, k6, 200),
+        **bound(kv_bytes, 4 * live * H * D, bf16)),
+        "paged_decode_attention": dict(
+        ms=device_ms("paged_decode_attention at 8 heads",
+                     paged_attention.paged_decode_attention, k7, 200),
+        **bound(kv_bytes + 4 * pages, 4 * live * H * D, bf16))}
+    for name, t in out.items():
+        log(f"  {name} at a rank's {H} heads (B={B} H=KH={H} D={D}, "
+            f"lengths {min(lens)}-{max(lens)}, "
+            f"{attention.decode_splits(B * KH)} splits): "
+            f"{t['ms'] * 1e3:.2f} us a launch, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) [{card}]")
+    return out
+
+
+def tp_serve(params, cfg, a: dict, refs: dict, card: str) -> dict:
+    """(e): LMBackend(tp=2) behind serve, contiguous and then paged with
+    speculative_k=3, through a handle and one stream; the card's memory
+    back after each backend goes. The contiguous backend's tokens must
+    equal (a)'s, bit for bit. The paged one's are held to one process's
+    by (b)'s rule: speculation rounds bf16 otherwise than K7 (phase 3c),
+    and which ticks verify depends on the batch serve forms, so it cannot
+    match (b)'s tokens bit for bit."""
+    V = cfg.vocab_size
+    prompts = serving_prompts(V)
+    _, _, shared, _ = paged_traffic(V)
+    cache_bytes = 2 * cfg.n_layers * SLOTS * MAX_SEQ * (
+        cfg.n_kv_heads // TP_RANKS) * cfg.head_dim * 2
+    pool_bytes = 2 * cfg.n_layers * (SLOTS * (MAX_SEQ // PAGE) + 1) * PAGE * (
+        cfg.n_kv_heads // TP_RANKS) * cfg.head_dim * 2
+    res = {}
+    rt.init()
+    try:
+        serve.init()
+        bc = serve.BackendConfig(**SERVE_CONFIG)
+        for tag, kw, reqs, per_rank in (
+                ("contig", {}, prompts, cache_bytes),
+                ("paged", dict(paged=True, page_size=PAGE,
+                               speculative_k=SPEC_K - 1), shared,
+                 pool_bytes)):
+            free0 = tp_free()
+            t0 = time.perf_counter()
+            serve.create_backend(f"lm:tp-{tag}", LMBackend, params, cfg,
+                                 tp=TP_RANKS, max_slots=SLOTS,
+                                 max_seq=MAX_SEQ, device=TP_DEVICE,
+                                 config=bc, **kw)
+            start_s = time.perf_counter() - t0
+            serve.create_endpoint(f"tp-{tag}", backend=f"lm:tp-{tag}")
+            h = serve.get_handle(f"tp-{tag}")
+            t0 = time.perf_counter()
+            outs = rt.get([h.remote(p, max_new_tokens=NEW_TOKENS)
+                           for p in reqs], timeout=600)
+            streamed = list(h.stream(reqs[1], max_new_tokens=NEW_TOKENS))
+            batch_s = time.perf_counter() - t0
+            stats = rt.get(h.options(method="stats").remote(), timeout=60)
+            free1 = tp_free()
+            if tag == "contig":
+                if outs != a["outs"] or streamed != outs[1]:
+                    raise AssertionError("(e) LMBackend(tp=2) behind serve "
+                                         "differs from (a)'s tokens")
+            else:
+                rb = refs["b"]
+                flips = greedy_flips("(e) paged, speculative_k=3",
+                                     outs + [streamed],
+                                     rb["outs"] + [rb["outs"][1]],
+                                     shared + [shared[1]], rb["gaps"])
+                if stats["speculative"]["ticks"] == 0:
+                    raise AssertionError("(e) no speculative tick counted")
+            serve.delete_endpoint(f"tp-{tag}")
+            serve.delete_backend(f"lm:tp-{tag}")
+            if tag == "paged":
+                serve.shutdown()
+            want = TP_RANKS * per_rank
+            wait_until(f"(e) {tag}: the card's memory back by both ranks' "
+                       f"KV stores", lambda: tp_free() - free1 >= want, 60)
+            back = tp_free() - free1
+            log(f"  (e) {tag}: serve.create_backend(LMBackend, tp=2) ready "
+                f"in {start_s:.2f} s; {len(reqs)} requests and one stream "
+                f"through the handle in {batch_s:.3f} s, "
+                + ("equal to (a)'s" if tag == "contig" else
+                   f"{len(flips)} of {len(reqs) + 1} differing from one "
+                   f"process's, each first at a near tie")
+                + f"; stats()['speculative'] {stats['speculative']}; in use "
+                f"{(free0 - free1) / 2**30:.2f} GiB of the card, "
+                f"{back / 2**30:.2f} GiB back after the backend went (both "
+                f"ranks' KV {want / 2**30:.2f} GiB) [{card}]")
+            res[tag] = {"start_s": start_s, "back": back}
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    return res
+
+
+def tp_free() -> int:
+    """The card's free bytes, device-wide (the ranks are other
+    processes)."""
+    gc.collect()
+    return torch.cuda.mem_get_info()[0] if TP_DEVICE == "cuda" else 0
+
+
+def tp_serve_path(params, cfg, main: dict, paged: dict, spec: dict,
+                  card: str) -> dict:
+    """Phase 15: serving under tensor parallelism on the card. One world of
+    TP_RANKS rank processes sharing it, each with its engine over a
+    ("tp",) mesh: (a) contiguous, (b) paged, (c) speculative, (d) the f32
+    witness; then (e) LMBackend(tp=2) behind serve."""
+    from ray_tpu_torch.parallel import World
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    KH = cfg.n_kv_heads // TP_RANKS
+    log(f"phase 15: serving under tensor parallelism, one world of "
+        f"{TP_RANKS} rank processes on the card (gloo), each over {KH} of "
+        f"the flagship's {cfg.n_kv_heads} kv heads [{card}]")
+    refs = tp_references(params, cfg, main, paged, spec)
+    f32_ref = tp_f32_reference(card)
+    log(f"  one process's references: phases 3, 3b, 3c's tokens again, "
+        f"{sum(len(r['gaps']) for r in refs.values())} greedy gaps kept; "
+        f"(d)'s f32 run at depth {TP_F32_LAYERS} "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    checksum = params_checksum(params)
+    if TP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    world = World(TP_RANKS, device=TP_DEVICE)
+    try:
+        t0 = time.perf_counter()
+        devs = world.run(tp_rank_entry, "hello", card)
+        start_s = time.perf_counter() - t0
+        ranks = world.run(tp_rank_entry, "params", card)
+        if any(r["checksum"] != checksum for r in ranks):
+            raise AssertionError("the ranks' weights are not phase 3's")
+        log(f"  the world's {TP_RANKS} ranks on {devs} up (processes, "
+            f"torch, gloo, this script imported) in {start_s:.2f} s; each "
+            f"drew phase 3's weights from seed {SEED} (checksums equal this "
+            f"process's) [{card}]")
+        got = {}
+        for job in ("a", "b", "c", "d"):
+            t0 = time.perf_counter()
+            got[job] = world.run(tp_rank_entry, job, card)
+            log(f"  ({job}) ran in {time.perf_counter() - t0:.1f} s")
+    finally:
+        world.close()
+
+    # (a)
+    ranks = got["a"]
+    a = tp_equal_ranks("(a)", ranks, ("outs", "sampled", "streamed",
+                                      "digests", "launches"))
+    want_kv = (L, SLOTS, MAX_SEQ, KH, cfg.head_dim)
+    if any(r["kv"] != want_kv for r in ranks):
+        raise AssertionError(f"(a) caches {[r['kv'] for r in ranks]}, "
+                             f"expected {want_kv} on every rank")
+    ra = refs["a"]
+    prompts = serving_prompts(cfg.vocab_size)
+    flips = greedy_flips("(a)", a["outs"], ra["outs"], prompts, ra["gaps"])
+    for i, s in enumerate(a["sampled"]):
+        sampled_flip(f"(a) sampled, run {i}", s, ra["sampled"], prompts[3],
+                     42, ra["rows"])
+    if a["streamed"] != a["outs"][0]:
+        raise AssertionError("(a) the streamed request differs from its "
+                             "whole response")
+    tick = float(np.median(a["tick_ms"]))
+    one = float(np.median([ms for n, ms in main["probe"].ticks
+                           if n == SLOTS]))
+    staged = float(np.median(a["bytes"]))
+    gloo = float(np.median(a["comm_ms"]))
+    copy = float(np.median(a["copy_ms"]))
+    log(f"  (a) contiguous: {len(prompts)} greedy requests, the sampled one "
+        f"twice and a stream; {len(flips)} of {len(prompts)} greedy requests "
+        f"differ from one process's, each first at a near tie; every rank's "
+        f"cache {list(want_kv)}; every tick on every rank {2 * L + 1} K1 "
+        f"and {L} K6 ({a['ticks']} ticks, {a['prefills']} prefills, "
+        f"launches {a['launches']} a rank); the ranks' logits bit-equal on "
+        f"all {len(a['digests'])} ticks")
+    log(f"  (a) tick at {SLOTS} active slots: {tick:.3f} ms wall at tp2 vs "
+        f"{one:.3f} ms one process (phase 3/7), {staged / 1e6:.3f} MB staged "
+        f"a tick in {int(np.median(a['calls']))} collectives, gloo "
+        f"{gloo:.3f} ms ({gloo / tick:.1%}) and pinned copies {copy:.3f} ms "
+        f"({copy / tick:.1%}) of it [{card}]")
+
+    # (b)
+    ranks = got["b"]
+    b = tp_equal_ranks("(b)", ranks, ("outs", "out_long", "digests",
+                                      "launches", "hits"))
+    want_pool = (L, SLOTS * (MAX_SEQ // PAGE) + 1, PAGE, KH, cfg.head_dim)
+    if any(r["pool"] != want_pool for r in ranks) or b["hits"] <= 0:
+        raise AssertionError(f"(b) pools {[r['pool'] for r in ranks]} "
+                             f"(expected {want_pool}), prefix hits "
+                             f"{b['hits']}")
+    _, _, shared, long_prompt = paged_traffic(cfg.vocab_size)
+    rb = refs["b"]
+    flips = greedy_flips("(b)", b["outs"] + [b["out_long"]],
+                         rb["outs"] + [rb["out_long"]],
+                         shared + [long_prompt], rb["gaps"])
+    log(f"  (b) paged: 16 shared-prefix requests and a {LONG_PROMPT}-token "
+        f"chunked prefill; {len(flips)} of 17 differ from one process's, "
+        f"each first at a near tie; every rank's pool {list(want_pool)}; "
+        f"{b['hits']} prefix pages hit on the split pool, up to "
+        f"{b['shared']} shared by live requests; every tick {2 * L + 1} K1 "
+        f"and {L} K7 on every rank ({b['ticks']} ticks, launches "
+        f"{ {n: c for n, c in b['launches'].items() if c} } a rank); tick "
+        f"{float(np.median(b['tick_ms'])):.3f} ms wall [{card}]")
+
+    # (c)
+    c = tp_equal_ranks("(c)", got["c"], ("contiguous", "paged"))
+    quoting = spec_traffic(cfg.vocab_size)["quoting"]
+    for name in ("contiguous", "paged"):
+        run, ref = c[name], refs["c", name]
+        flips = greedy_flips(f"(c) {name}", run["out"], ref["outs"], quoting,
+                             ref["gaps"])
+        log(f"  (c) {name}, speculative_k={SPEC_K}: {len(flips)} of "
+            f"{len(quoting)} quoting requests differ from one process's, "
+            f"each first at a near tie; {run['verify']} verify passes, "
+            f"{run['decode']} draft-less ticks through K7; launches "
+            f"{ {n: c for n, c in run['launches'].items() if c} } a rank; "
+            f"stats {run['stats']}")
+    if c["paged"]["launches"]["paged_decode_attention"] == 0:
+        raise AssertionError("(c) no draft-less paged tick counted K7")
+
+    # (d)
+    ranks = got["d"]
+    d = tp_equal_ranks("(d)", ranks, ("outs", "digests"))
+    if d["outs"] != f32_ref["outs"]:
+        bad = [i for i, (x, y) in enumerate(zip(d["outs"], f32_ref["outs"]))
+               if x != y]
+        raise AssertionError(f"(d) f32 greedy tokens differ from one "
+                             f"process's in requests {bad}")
+    got32 = np.stack(ranks[0]["logits"])
+    ref32 = np.stack(f32_ref["logits"])
+    rel = float(np.abs(got32 - ref32).max() / np.abs(ref32).max())
+    bnd = _f32_reorder_bound()
+    log(f"  (d) f32 witness (depth {TP_F32_LAYERS}): every greedy token of "
+        f"12 requests equal to one process's; logits over {len(got32)} "
+        f"ticks: max |tp2 - one process| / max |one process| {rel:.3e}, "
+        f"bound {bnd:.3e} (the f32 partial-sum reorder)")
+    if not rel <= bnd:
+        raise AssertionError(f"(d) f32 logits {rel} off one process's, above "
+                             f"the reorder bound {bnd}")
+
+    kernels = tp_kernel_times(a["lens"][len(a["lens"]) // 2], card)
+    served = tp_serve(params, cfg, a, refs, card)
+    log(f"  world start-up {start_s:.2f} s here, "
+        f"{served['contig']['start_s']:.2f} and "
+        f"{served['paged']['start_s']:.2f} s for the backends' worlds; "
+        f"phase 15 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"kernels": kernels, "tick_ms": tick, "one_ms": one}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -5694,6 +6415,7 @@ def main() -> int:
     operator_path(main, card)
     library = train_library_path(train, card)
     mesh_path(train, library, card)
+    tp_serve_path(params, cfg, main, paged, spec, card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

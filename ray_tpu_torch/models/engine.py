@@ -26,9 +26,15 @@ Subclass hooks (the paged engine, ``models/paged_engine.py``, overrides
 them): ``_alloc_cache``, ``_decode_all``, ``_verify_all``,
 ``_prefill_slot``, ``_release_slot`` and ``_can_admit``.
 
-Left for a later slice, and refused here with NotImplementedError: a
-tensor-parallel ``mesh`` (serving under tensor parallelism, A7c of
-ROADMAP.md).
+With a ``mesh`` (``parallel.make_mesh``, one engine a rank, every rank
+stepping the same requests in the same order), the engine runs on the
+rank's device over its block of the weights in ``decode_shardings``'
+Megatron layout and a KV cache of KH/tp heads, allocated at that size: the
+embedding through the vocab-parallel ``_embed``, the ``wo`` and ``w_down``
+partials summed over tp, the tied head over the rank's vocab rows and its
+logits gathered over tp, so every rank holds the same full logits and
+picks the same tokens. K1 runs over the full width and K6 over the rank's
+heads. The host loop is the same on every rank.
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ import numpy as np
 import torch
 
 from .. import Device, default_device
+from .._tree import tree_map
 from ..ops.attention import decode_attention, masked_gqa_attention
+from ..parallel.mesh import Mesh, shard
 from .speculative import NgramIndex, _batched_verify, longest_accept
 from .transformer import (
-    Params, TransformerConfig, _decoder, _layers, _rope, to_compute,
+    Params, TransformerConfig, _attn_out, _check_mesh, _decoder, _embed,
+    _heads, _layers, _logits, _mlp_tp, _rope, decode_shardings, to_compute,
 )
 
 
@@ -57,16 +66,17 @@ def _rope_at(x: torch.Tensor, positions: torch.Tensor,
 
 def _batched_decode(params: Params, tokens: torch.Tensor,
                     lengths: torch.Tensor, cache_k: torch.Tensor,
-                    cache_v: torch.Tensor,
-                    cfg: TransformerConfig) -> torch.Tensor:
+                    cache_v: torch.Tensor, cfg: TransformerConfig,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """tokens [B] at per-slot positions ``lengths`` [B] int32 -> logits
     [B, V]. Writes each slot's new K/V at row ``lengths[b]`` of cache_[kv]
     [L, B, S, KH, Dh] IN PLACE (idle slots write garbage at their row 0,
-    as in the JAX engine). Callers ignore logits of inactive slots."""
+    as in the JAX engine). Callers ignore logits of inactive slots. Under
+    a mesh: the rank's weights and its KH/tp heads of the cache."""
     B = tokens.shape[0]
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     slots = torch.arange(B, device=tokens.device)
-    x = params["embed"][tokens][:, None, :]                     # [B, 1, E]
+    x = _embed(params["embed"], tokens, mesh)[:, None, :]       # [B, 1, E]
 
     def attend(i, layer, h):
         q = _rope_at((h @ layer["wq"]).reshape(B, 1, H, Dh), lengths,
@@ -78,25 +88,26 @@ def _batched_decode(params: Params, tokens: torch.Tensor,
         cache_v[i, slots, lengths] = v[:, 0]
         attn = decode_attention(q[:, 0].contiguous(), cache_k[i], cache_v[i],
                                 lengths).reshape(B, 1, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x[:, 0] @ params["embed"].T
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x[:, 0], params["embed"], mesh)
 
 
 def _prefill_into_slot(params: Params, tokens: torch.Tensor, real_len: int,
                        slot: int, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                       cfg: TransformerConfig) -> torch.Tensor:
+                       cfg: TransformerConfig,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Prompt [1, Tb] (right-padded to a power-of-2 bucket) -> logits [V]
     at position real_len-1, with the slot's cache rows [0:Tb) written IN
     PLACE. Pad rows hold garbage K/V beyond real_len — safe: prompt
     positions only attend causally at <= their own index, and decode
     overwrites row ``length`` before each attend reaches it."""
     _, Tb = tokens.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     dev = tokens.device
-    x = params["embed"][tokens]                                 # [1, Tb, E]
+    x = _embed(params["embed"], tokens, mesh)                   # [1, Tb, E]
     positions = torch.arange(Tb, device=dev)
     causal = positions[None, :] <= positions[:, None]           # [Tb, Tb]
 
@@ -109,17 +120,17 @@ def _prefill_into_slot(params: Params, tokens: torch.Tensor, real_len: int,
         cache_k[i, slot, :Tb] = k[0]
         cache_v[i, slot, :Tb] = v[0]
         attn = masked_gqa_attention(q, k, v, causal).reshape(1, Tb, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x[0, real_len - 1] @ params["embed"].T               # [V]
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x[0, real_len - 1], params["embed"], mesh)   # [V]
 
 
 def _prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
                    slot: int, last_idx: int, cache_k: torch.Tensor,
-                   cache_v: torch.Tensor,
-                   cfg: TransformerConfig) -> torch.Tensor:
+                   cache_v: torch.Tensor, cfg: TransformerConfig,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One CHUNK of a long prompt: tokens [1, C] at positions
     start..start+C-1 of ``slot`` -> logits [V] at in-chunk row ``last_idx``
     (meaningful on the final chunk), chunk K/V written into the slot's
@@ -133,10 +144,10 @@ def _prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
     (transformer._decoder); the engine tests pin all three to generate():
     touch the attention math in one, touch it in all."""
     _, C = tokens.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     S = cache_k.shape[2]
     dev = tokens.device
-    x = params["embed"][tokens]                                 # [1, C, E]
+    x = _embed(params["embed"], tokens, mesh)                   # [1, C, E]
     positions = start + torch.arange(C, device=dev)
     mask = torch.arange(S, device=dev)[None, :] <= positions[:, None]
 
@@ -151,11 +162,21 @@ def _prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
         attn = masked_gqa_attention(
             q, cache_k[i, slot:slot + 1], cache_v[i, slot:slot + 1],
             mask).reshape(1, C, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x[0, last_idx] @ params["embed"].T                   # [V]
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x[0, last_idx], params["embed"], mesh)       # [V]
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` names ``b`` (a CUDA device without an index names the current
+    one)."""
+    if a.type != b.type:
+        return False
+    if a.type == "cpu" or a.index == b.index:
+        return True
+    return a.index is None and b.index == torch.cuda.current_device()
 
 
 class _Request:
@@ -221,13 +242,24 @@ class GenerationEngine:
     def __init__(self, params: Params, cfg: TransformerConfig, *,
                  max_slots: int = 4, max_seq: Optional[int] = None,
                  eos_id: Optional[int] = None, speculative_k: int = 0,
-                 speculative_ngram: int = 2, mesh=None,
+                 speculative_ngram: int = 2, mesh: Optional[Mesh] = None,
                  prefill_chunk: int = 0, device: Device = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel serving mesh is not ported yet; it comes "
-                "with serving under tensor parallelism (A7c) of ROADMAP.md")
-        self.device = default_device(device)
+        _check_mesh(mesh)
+        # Serving over a tp mesh: this rank's block of the weights in the
+        # Megatron decode layout, on the rank's device; the caches are
+        # allocated at KH/tp heads (_alloc_cache), never whole.
+        self.mesh = mesh
+        if mesh is None:
+            self.device = default_device(device)
+        else:
+            self.device = mesh.device
+            if device is not None and not _same_device(
+                    torch.device(device), mesh.device):
+                raise ValueError(
+                    f"device {device!r} is not the mesh's device "
+                    f"{mesh.device}: under a mesh the engine runs on the "
+                    f"rank's device")
+            params = shard(params, decode_shardings(cfg, mesh), mesh)
         self.cfg = cfg
         self.slots = max_slots
         # N-gram speculative decoding (models/speculative.py): verify K
@@ -237,8 +269,13 @@ class GenerationEngine:
         self.speculative_ngram = int(speculative_ngram)
         self.max_seq = max_seq or cfg.max_seq_len
         self.eos_id = eos_id
-        # Weights in the compute dtype on the device, cast once.
+        # Weights in the compute dtype on the device, cast once; under a
+        # mesh a block that is still a view of the whole tensor is copied,
+        # so the whole tensors can go.
         self.params = to_compute(params, cfg, self.device)
+        if mesh is not None:
+            self.params = tree_map(
+                lambda t: t if t._base is None else t.clone(), self.params)
         # Long-context prefill: prompts longer than this process in fixed
         # chunks (O(T*S) attention) instead of one power-of-2 bucket
         # (O(T^2) mask memory). 0 = bucketed only.
@@ -268,8 +305,8 @@ class GenerationEngine:
         at the small page budgets it exists for, that spike alone could
         exhaust the card's memory."""
         cfg = self.cfg
-        shape = (cfg.n_layers, self.slots, self.max_seq, cfg.n_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.n_layers, self.slots, self.max_seq,
+                 _heads(cfg, self.mesh)[1], cfg.head_dim)
         self.cache_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         self.cache_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
 
@@ -492,7 +529,7 @@ class GenerationEngine:
         return _batched_verify(
             self.params, self._device_ints(chunk),
             self._device_ints(self.lengths), self.cache_k, self.cache_v,
-            self.cfg)
+            self.cfg, self.mesh)
 
     # ---- internals ----
 
@@ -505,7 +542,7 @@ class GenerationEngine:
         return _batched_decode(
             self.params, self._device_ints(self.tokens),
             self._device_ints(self.lengths), self.cache_k, self.cache_v,
-            self.cfg)
+            self.cfg, self.mesh)
 
     def _release_slot(self, slot: int) -> None:
         self.active[slot] = None
@@ -549,13 +586,14 @@ class GenerationEngine:
                 chunk = chunk + [0] * (C - len(chunk))
                 logits = _prefill_chunk(
                     self.params, self._device_ints(np.asarray([chunk])), s0,
-                    slot, (T0 - 1) % C, self.cache_k, self.cache_v, self.cfg)
+                    slot, (T0 - 1) % C, self.cache_k, self.cache_v, self.cfg,
+                    self.mesh)
         else:
             bucket = min(1 << (T0 - 1).bit_length(), self.max_seq)
             padded = req.prompt + [0] * (bucket - T0)
             logits = _prefill_into_slot(
                 self.params, self._device_ints(np.asarray([padded])), T0,
-                slot, self.cache_k, self.cache_v, self.cfg)
+                slot, self.cache_k, self.cache_v, self.cfg, self.mesh)
         first = req.pick(logits.float().cpu().numpy())
         req.out.append(first)
         # Next decode for this slot attends from `first` at position T0.

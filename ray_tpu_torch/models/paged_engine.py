@@ -39,8 +39,12 @@ table, out-of-range positions and -1 entries to the scratch page, and
 attention runs over the gathered pool, plain PyTorch as the JAX package's
 is XLA. A tick with no drafts anywhere takes ``_decode_all`` and so K7.
 
-Left for a later slice, and refused with NotImplementedError by the base
-engine: a tensor-parallel ``mesh`` (A7c of ROADMAP.md).
+With a tp ``mesh`` the page pools are allocated at KH/tp heads on the
+rank's device and every forward takes the base engine's tp rules (the
+rank's block of the weights, its heads, partial sums and logits gathered
+over tp); page tables and the prefix cache stay host state, which every
+rank computes alike because every rank admits the same requests in the
+same order. K7 runs over the rank's heads.
 """
 
 from __future__ import annotations
@@ -55,23 +59,26 @@ from ..ops.attention import masked_gqa_attention
 from ..ops.paged_attention import (
     PagePool, paged_decode_attention, paged_gather, write_paged,
 )
+from ..parallel.mesh import Mesh
 from .engine import GenerationEngine, _Request, _rope_at
-from .transformer import Params, TransformerConfig, _decoder, _layers, _rope
+from .transformer import (Params, TransformerConfig, _attn_out, _decoder,
+                          _embed, _heads, _layers, _logits, _mlp_tp, _rope)
 
 
 def _paged_decode(params: Params, tokens: torch.Tensor,
                   lengths: torch.Tensor, tables: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
-                  cfg: TransformerConfig) -> torch.Tensor:
+                  cfg: TransformerConfig,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """tokens [B] at positions ``lengths`` [B] -> logits [B, V].
 
     k_pages/v_pages: [L, num_pages, ps, KH, Dh], written IN PLACE; tables
     [B, P] int32 (-1 padded — clamped writes land on the reserved scratch
-    page 0)."""
+    page 0). Under a mesh: the rank's weights and KH/tp heads."""
     B = tokens.shape[0]
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     ps = k_pages.shape[2]
-    x = params["embed"][tokens][:, None, :]                     # [B, 1, E]
+    x = _embed(params["embed"], tokens, mesh)[:, None, :]       # [B, 1, E]
     # Global pool row for each slot's current position, through its table.
     page = tables.gather(1, (lengths // ps).long()[:, None])[:, 0]   # [B]
     rows = page.clamp_min(0) * ps + lengths % ps                  # [B]
@@ -87,17 +94,18 @@ def _paged_decode(params: Params, tokens: torch.Tensor,
         attn = paged_decode_attention(
             q[:, 0].contiguous(), k_pages[i], v_pages[i], tables,
             lengths).reshape(B, 1, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x[:, 0] @ params["embed"].T
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x[:, 0], params["embed"], mesh)
 
 
 def _paged_verify(params: Params, tokens: torch.Tensor,
                   lengths: torch.Tensor, tables: torch.Tensor,
                   k_pages: torch.Tensor, v_pages: torch.Tensor,
-                  cfg: TransformerConfig) -> torch.Tensor:
+                  cfg: TransformerConfig,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Speculative verify through page indirection: tokens [B, S]
     (current + S-1 drafts) at positions lengths..lengths+S-1 -> logits
     [B, S, V]. Chunk K/V rows scatter IN PLACE through each slot's page
@@ -112,11 +120,11 @@ def _paged_verify(params: Params, tokens: torch.Tensor,
     the logical layout and masks col <= lengths+i (plain PyTorch, as the
     JAX package's is XLA; chunk widths are small)."""
     B, S = tokens.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     ps = k_pages.shape[2]
     P = tables.shape[1]
     dev = tokens.device
-    x = params["embed"][tokens]                                 # [B, S, E]
+    x = _embed(params["embed"], tokens, mesh)                   # [B, S, E]
     positions = (lengths[:, None].long()
                  + torch.arange(S, device=dev)[None, :])        # [B, S]
     page_idx = positions // ps
@@ -139,18 +147,18 @@ def _paged_verify(params: Params, tokens: torch.Tensor,
         buf_v = paged_gather(v_pages[i], tables)
         attn = masked_gqa_attention(q, buf_k, buf_v, mask).reshape(
             B, S, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x @ params["embed"].T                                # [B, S, V]
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x, params["embed"], mesh)                    # [B, S, V]
 
 
 def _paged_prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
                          last_idx: int, rows: torch.Tensor,
                          table_row: torch.Tensor, k_pages: torch.Tensor,
-                         v_pages: torch.Tensor,
-                         cfg: TransformerConfig) -> torch.Tensor:
+                         v_pages: torch.Tensor, cfg: TransformerConfig,
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One CHUNK of a long prompt through page indirection: tokens [1, C]
     at positions start..start+C-1 -> logits [V] at in-chunk row
     ``last_idx``. Chunk K/V scatter to pool rows ``rows`` [C]
@@ -161,11 +169,11 @@ def _paged_prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
     can be SKIPPED entirely by the caller (prefix-cache compute reuse, not
     just memory reuse)."""
     _, C = tokens.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     ps = k_pages.shape[2]
     P = table_row.shape[0]
     dev = tokens.device
-    x = params["embed"][tokens]                                 # [1, C, E]
+    x = _embed(params["embed"], tokens, mesh)                   # [1, C, E]
     positions = start + torch.arange(C, device=dev)
     mask = (torch.arange(P * ps, device=dev)[None, :]
             <= positions[:, None])                              # [C, P*ps]
@@ -182,26 +190,26 @@ def _paged_prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
         buf_v = paged_gather(v_pages[i], table_row[None])
         attn = masked_gqa_attention(q, buf_k, buf_v, mask).reshape(
             1, C, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x[0, last_idx] @ params["embed"].T                   # [V]
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x[0, last_idx], params["embed"], mesh)       # [V]
 
 
 def _paged_prefill(params: Params, tokens: torch.Tensor, real_len: int,
                    rows: torch.Tensor, k_pages: torch.Tensor,
-                   v_pages: torch.Tensor,
-                   cfg: TransformerConfig) -> torch.Tensor:
+                   v_pages: torch.Tensor, cfg: TransformerConfig,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Prompt [1, Tb] (bucket-padded) -> logits [V] at real_len-1; each
     layer's prompt K/V rows scatter into the pool at global rows ``rows``
     [Tb] (pad positions point at the scratch page). The forward itself is
     the standard causal attention over the prompt — prefill never reads the
     pool."""
     _, Tb = tokens.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     dev = tokens.device
-    x = params["embed"][tokens]                                 # [1, Tb, E]
+    x = _embed(params["embed"], tokens, mesh)                   # [1, Tb, E]
     positions = torch.arange(Tb, device=dev)
     causal = positions[None, :] <= positions[:, None]
 
@@ -214,11 +222,11 @@ def _paged_prefill(params: Params, tokens: torch.Tensor, real_len: int,
         write_paged(k_pages[i], rows, k[0])
         write_paged(v_pages[i], rows, v[0])
         attn = masked_gqa_attention(q, k, v, causal).reshape(1, Tb, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x[0, real_len - 1] @ params["embed"].T               # [V]
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x[0, real_len - 1], params["embed"], mesh)   # [V]
 
 
 class PagedGenerationEngine(GenerationEngine):
@@ -240,12 +248,13 @@ class PagedGenerationEngine(GenerationEngine):
                  eos_id: Optional[int] = None, page_size: int = 128,
                  num_pages: Optional[int] = None, speculative_k: int = 0,
                  speculative_ngram: int = 2, prefill_chunk: int = 0,
-                 mesh=None, device: Device = None):
+                 mesh: Optional[Mesh] = None, device: Device = None):
         super().__init__(params, cfg, max_slots=max_slots, max_seq=max_seq,
                          eos_id=eos_id, speculative_k=speculative_k,
                          speculative_ngram=speculative_ngram, mesh=mesh,
                          prefill_chunk=prefill_chunk, device=device)
-        L, KH, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        # The pools at the rank's KH/tp heads under a mesh.
+        L, KH, Dh = cfg.n_layers, _heads(cfg, mesh)[1], cfg.head_dim
         self.page_size = ps = page_size
         self.pages_per_slot = -(-self.max_seq // ps)
         if num_pages is None:
@@ -338,13 +347,13 @@ class PagedGenerationEngine(GenerationEngine):
         return _paged_decode(
             self.params, self._device_ints(self.tokens),
             self._device_ints(self.lengths), self._device_ints(self._tables),
-            self.k_pages, self.v_pages, self.cfg)
+            self.k_pages, self.v_pages, self.cfg, self.mesh)
 
     def _verify_all(self, chunk: np.ndarray) -> torch.Tensor:
         return _paged_verify(
             self.params, self._device_ints(chunk),
             self._device_ints(self.lengths), self._device_ints(self._tables),
-            self.k_pages, self.v_pages, self.cfg)
+            self.k_pages, self.v_pages, self.cfg, self.mesh)
 
     def _prefill_slot(self, slot: int, req: _Request) -> bool:
         T0 = len(req.prompt)
@@ -400,13 +409,14 @@ class PagedGenerationEngine(GenerationEngine):
                 logits = _paged_prefill_chunk(
                     self.params, self._device_ints(np.asarray([chunk])), s0,
                     (T0 - 1) % C, self._device_ints(rows[s0:s0 + C]),
-                    table_row, self.k_pages, self.v_pages, self.cfg)
+                    table_row, self.k_pages, self.v_pages, self.cfg,
+                    self.mesh)
         else:
             padded = req.prompt + [0] * (bucket - T0)
             logits = _paged_prefill(
                 self.params, self._device_ints(np.asarray([padded])), T0,
                 self._device_ints(rows), self.k_pages, self.v_pages,
-                self.cfg)
+                self.cfg, self.mesh)
         # The blocks this prefill just wrote are now resident + immutable:
         # publish them so later prompts with the same head reuse the pages.
         for j in range(len(shared), len(keys)):

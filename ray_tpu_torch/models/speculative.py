@@ -30,19 +30,21 @@ Python, the JAX package's copied whole.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..ops.attention import masked_gqa_attention
-from .transformer import Params, TransformerConfig, _decoder, _layers, _rope
+from ..parallel.mesh import Mesh
+from .transformer import (Params, TransformerConfig, _attn_out, _decoder,
+                          _embed, _heads, _layers, _logits, _mlp_tp, _rope)
 
 
 def _batched_verify(params: Params, tokens: torch.Tensor,
                     lengths: torch.Tensor, cache_k: torch.Tensor,
-                    cache_v: torch.Tensor,
-                    cfg: TransformerConfig) -> torch.Tensor:
+                    cache_v: torch.Tensor, cfg: TransformerConfig,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Verify forward: tokens [B, S] (current token + S-1 drafts) at
     positions lengths..lengths+S-1 -> logits [B, S, V].
 
@@ -54,12 +56,14 @@ def _batched_verify(params: Params, tokens: torch.Tensor,
     S_max (``_spec_possible``; idle slots sit at length 0), and the clamp
     keeps an index write from ever leaving the cache. Rows written for
     REJECTED drafts hold garbage afterwards, which the next decode or
-    verify overwrites before any attend reaches it."""
+    verify overwrites before any attend reaches it. Under a mesh, the
+    engine's tp rules: the rank's weights and KH/tp heads, partials summed
+    and logits gathered over tp; the attention stays plain."""
     B, S = tokens.shape
-    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (H, KH), Dh = _heads(cfg, mesh), cfg.head_dim
     S_max = cache_k.shape[2]
     dev = tokens.device
-    x = params["embed"][tokens]                                 # [B, S, E]
+    x = _embed(params["embed"], tokens, mesh)                   # [B, S, E]
     offsets = torch.arange(S, device=dev)
     positions = lengths[:, None].long() + offsets[None, :]      # [B, S]
     rows = lengths.long().clamp(0, S_max - S)[:, None] + offsets[None, :]
@@ -78,11 +82,11 @@ def _batched_verify(params: Params, tokens: torch.Tensor,
         cache_v[i, slots, rows] = v
         attn = masked_gqa_attention(q, cache_k[i], cache_v[i],
                                     mask).reshape(B, S, H * Dh)
-        return attn @ layer["wo"]
+        return _attn_out(attn, layer["wo"], mesh)
 
     x = _decoder(x, _layers(params, cfg), params["final_norm"],
-                 cfg.norm_eps, attend)
-    return x @ params["embed"].T                                # [B, S, V]
+                 cfg.norm_eps, attend, _mlp_tp(mesh))
+    return _logits(x, params["embed"], mesh)                    # [B, S, V]
 
 
 def propose_ngram(context: Sequence[int], k: int,

@@ -35,7 +35,7 @@ pipeline (``forward_pipelined``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,6 +166,27 @@ def param_shardings(cfg: TransformerConfig, mesh: Mesh) -> Params:
             "final_norm": P(None)}
 
 
+def decode_shardings(cfg: TransformerConfig, mesh: Mesh) -> Params:
+    """Megatron layout over tp alone, for serving: the layer-stacked
+    weights split over tp and whole along every other axis (a serving
+    engine runs no pipeline), the embedding over tp on the vocab axis. The
+    engines split their KV caches on the kv-head axis the same way."""
+    tp = max(mesh.shape.get("tp", 1), 1)
+    if (cfg.n_kv_heads % tp or cfg.n_heads % tp or cfg.d_ff % tp
+            or cfg.vocab_size % tp):
+        raise ValueError(
+            f"tp ({tp}) must divide n_heads ({cfg.n_heads}), n_kv_heads "
+            f"({cfg.n_kv_heads}), d_ff ({cfg.d_ff}) and vocab_size "
+            f"({cfg.vocab_size}) for sharded decode")
+
+    def strip_pp(spec: P) -> P:
+        return P(*[None if axis == "pp" else axis for axis in spec])
+
+    return {"embed": P("tp", None),
+            "layers": {k: strip_pp(v) for k, v in _LAYER_PSPECS.items()},
+            "final_norm": P(None)}
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s weights: views into the stacked [L, ...] tensors."""
     return {k: v[i] for k, v in params["layers"].items()}
@@ -287,8 +308,7 @@ def _attention(x: torch.Tensor, layer: Params, cfg: TransformerConfig,
     B, T, _ = x.shape
     Dh = cfg.head_dim
     split = mesh is not None and mesh.size("tp") > 1
-    tp = mesh.size("tp") if split else 1
-    H, KH = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    H, KH = _heads(cfg, mesh)
     if split:
         x = all_reduce_grad(x, mesh, "tp")
     q = _rope((x @ layer["wq"]).reshape(B, T, H, Dh), positions,
@@ -346,6 +366,28 @@ def _head(y: torch.Tensor, embed: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh is not None and mesh.size("tp") > 1:
         y = all_reduce_grad(y, mesh, "tp")
     return y @ embed.T
+
+
+def _heads(cfg: TransformerConfig, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """The query and kv heads this rank attends over: H/tp and KH/tp."""
+    tp = 1 if mesh is None else mesh.size("tp")
+    return cfg.n_heads // tp, cfg.n_kv_heads // tp
+
+
+def _attn_out(attn: torch.Tensor, wo: torch.Tensor,
+              mesh: Optional[Mesh]) -> torch.Tensor:
+    """The attention output through ``wo``; under tp the rank's row-parallel
+    partial, summed over tp."""
+    out = attn @ wo
+    return out if mesh is None else all_reduce_sum(out, mesh, "tp")
+
+
+def _logits(y: torch.Tensor, embed: torch.Tensor,
+            mesh: Optional[Mesh]) -> torch.Tensor:
+    """The tied head; under tp the rank's [.., V/tp] block gathered over tp,
+    so every rank holds the same full [.., V] logits."""
+    out = _head(y, embed, mesh)
+    return out if mesh is None else all_gather(out, mesh, "tp", axis=-1)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -45,6 +45,27 @@ _FLASH_SIGNATURES = {
 }
 
 
+def unsharded_operands(*tensors) -> bool:
+    """True when every operand lies whole on one device. Under the port's
+    meshes each rank holds plain tensors (its own shard), so this is True
+    for them; a ``torch.distributed.tensor.DTensor`` whose mesh spans more
+    than one device is False. The decode wrappers refuse such an operand:
+    the port has no partitioned plain path to hand it to."""
+    if all(type(t) is torch.Tensor for t in tensors):
+        return True   # the decode path's case, without the import below
+    from torch.distributed.tensor import DTensor
+
+    return not any(isinstance(t, DTensor) and t.device_mesh.size() > 1
+                   for t in tensors)
+
+
+def _check_unsharded(name: str, *tensors) -> None:
+    if not unsharded_operands(*tensors):
+        raise ValueError(
+            f"{name} takes each rank's own tensors, not a DTensor over a "
+            f"mesh of several devices; pass its local shard")
+
+
 def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     """[B, S, KH, D] -> [B, S, H, D] by repeating each kv head."""
     kh = k.shape[2]
@@ -245,7 +266,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The JAX package's ``block_k`` and ``truncate_dma`` are Pallas tiling
     knobs that no caller passes; the kernel here plans its own splits, so
-    the port takes neither."""
+    the port takes neither. A DTensor over several devices raises
+    ValueError (``unsharded_operands``)."""
+    _check_unsharded("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return _decode_attention_ref(q, k, v, lengths)
     return _decode_attention_cuda(q, k, v, lengths)

@@ -29,8 +29,10 @@ import numpy as np
 import torch
 
 from .._kernels import count_launch
-from .attention import (_DTYPES, _SMEM_LIMIT, _decode_split,
-                        masked_gqa_attention)
+from .attention import (  # noqa: F401 (unsharded_operands: JAX's name)
+    _DTYPES, _SMEM_LIMIT, _check_unsharded, _decode_split,
+    masked_gqa_attention, unsharded_operands,
+)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -183,7 +185,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (inclusive attend bound, like ``decode_attention``) -> [B, H, D].
     CUDA tensors go through the hand-written kernel K7; CPU tensors through
     ``_paged_decode_ref``. It has no backward: on the card it raises when
-    grad mode is on and an input requires grad."""
+    grad mode is on and an input requires grad. A DTensor over several
+    devices raises ValueError (``attention.unsharded_operands``)."""
+    _check_unsharded("paged_decode_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return _paged_decode_ref(q, k_pages, v_pages, page_table, lengths)
     return _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths)

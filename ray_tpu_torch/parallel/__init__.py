@@ -11,7 +11,7 @@ sharded over tp.
 
 from .mesh import (  # noqa: F401
     AXIS_ORDER, Mesh, MeshSpec, NamedSharding, P, World, gather, launch,
-    make_mesh, named, replicated, shard,
+    make_mesh, named, rank_state, replicated, shard,
 )
 from .ring_attention import (  # noqa: F401
     ring_attention, ring_attention_sharded,

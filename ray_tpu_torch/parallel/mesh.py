@@ -20,7 +20,8 @@ its own shard of every parameter and batch, and explicit collectives
   ``jax.device_get``: every rank gets the whole tensor back.
 - ``launch`` (over ``World``) starts the ranks as processes on this host,
   runs a function in each and returns each rank's result: the port's
-  counterpart of the single controller over ``jax.devices()``. Under
+  counterpart of the single controller over ``jax.devices()``. A rank keeps
+  objects between a world's calls in ``rank_state()``. Under
   ``torchrun``, call ``make_mesh`` in each process instead; it initializes
   the world from torchrun's environment.
 
@@ -118,6 +119,9 @@ class P(tuple):
 
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)   # pickle rebuilds P(*entries), not P(entries)
 
     def __repr__(self) -> str:
         return "P(" + ", ".join(map(repr, self)) + ")"
@@ -317,6 +321,18 @@ def gather(tree, specs, mesh: Mesh):
 
 
 # ---------------------------------------------------------- the world
+
+# Objects a rank keeps between ``World.run`` calls, by key (a serving
+# engine that the world steps once a call).
+_RANK_STATE: Dict[str, Any] = {}
+
+
+def rank_state() -> Dict[str, Any]:
+    """This process's registry of objects kept between ``World.run`` calls:
+    a function the world runs stores an object under a key, and a later
+    one finds it there, in the same rank process."""
+    return _RANK_STATE
+
 
 
 class RankError(RuntimeError):

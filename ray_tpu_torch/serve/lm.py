@@ -30,22 +30,142 @@ engine (``models/speculative.py``; ``speculative_ngram`` is the n-gram
 order), exact for greedy requests; ``stats()["speculative"]`` reports its
 ticks, drafted, accepted and emitted tokens, and the acceptance rate.
 
-Left for a later slice, and refused here with NotImplementedError: tensor
-parallelism (``tp > 1``, A7c of ROADMAP.md).
+``tp > 1`` serves over tensor parallelism: the JAX package's one
+controller over tp devices becomes a ``parallel.World`` of tp rank
+processes on ``device`` (they share the card when there is one), each
+holding an engine of either kind over ``make_mesh({"tp": tp})`` with its
+block of the weights and KH/tp heads of the cache. ``_TpEngine`` gives
+the backend the engine interface it uses: submits and cancels are
+forwarded to every rank in the order the backend makes them, each
+``step()`` steps every rank's engine once, and every rank's reply (its
+events, finished outputs, queue, slots and speculation counters) must
+equal every other's, or the step raises and the backend is poisoned, as by
+any step failure. ``close()`` stops the world.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, List, Optional
+import uuid
+from typing import Any, Dict, List, Optional
 
 from .. import Device
+from .._tree import tree_map
 from ..exceptions import ReplicaUnavailableError
 from ..models.engine import GenerationEngine
 from ..models.paged_engine import PagedGenerationEngine
+from ..parallel.mesh import World, make_mesh, rank_state
 from .api import accept_batch
 from .config import ServeRequest
+
+
+def _rank_build(key: str, params: Any, cfg: Any, tp: int, paged: bool,
+                kw: dict) -> None:
+    """In each rank: the engine over a ("tp",) mesh of the world, kept in
+    the rank's ``rank_state()`` under ``key``."""
+    cls = PagedGenerationEngine if paged else GenerationEngine
+    rank_state()[key] = cls(params, cfg, mesh=make_mesh({"tp": tp}), **kw)
+
+
+def _rank_step(key: str, ops: list) -> dict:
+    """In each rank: the forwarded submits and cancels in order, then one
+    engine step. Finished outputs leave the engine's ``done`` here, so a
+    rank's memory does not grow with traffic."""
+    eng = rank_state()[key]
+    for op, rid, args in ops:
+        if op == "cancel":
+            eng.cancel(rid)
+        elif eng.submit(*args) != rid:
+            raise RuntimeError(f"request {rid} got another id on this rank")
+    events = eng.step()
+    return {"events": events,
+            "done": {rid: eng.done.pop(rid) for rid in list(eng.done)},
+            "queue": [r.req_id for r in eng.queue],
+            "active": [None if r is None else r.req_id for r in eng.active],
+            "spec_stats": dict(eng.spec_stats)}
+
+
+class _Held:
+    """A request as the backend sees it in ``queue`` and ``active``."""
+    __slots__ = ("req_id",)
+
+    def __init__(self, req_id: int):
+        self.req_id = req_id
+
+
+class _TpEngine:
+    """The engine interface ``LMBackend`` uses (``validate``, ``submit``,
+    ``step``, ``cancel``, ``queue``, ``active``, ``done``, ``slots``,
+    ``spec_stats``) over one engine a rank of a world of ``tp`` ranks,
+    stepped in lockstep. The parameters travel to the ranks on the host,
+    and each rank moves only its block to its device."""
+
+    def __init__(self, params: Any, cfg: Any, tp: int, paged: bool,
+                 kw: dict, device: Device):
+        self.world = World(tp, device=device)   # raises without a card
+        self.key = uuid.uuid4().hex
+        self.slots = kw["max_slots"]
+        self.max_seq = kw["max_seq"] or cfg.max_seq_len
+        self.queue: List[_Held] = []
+        self.active: List[Optional[_Held]] = [None] * self.slots
+        self.done: Dict[int, List[int]] = {}
+        self.spec_stats = {"ticks": 0, "drafted": 0, "accepted": 0,
+                           "emitted": 0}
+        self._ops: list = []
+        self._next_id = 0
+        host = tree_map(lambda t: t.detach().cpu(), params)
+        try:
+            self.world.run(_rank_build, self.key, host, cfg, tp, paged, kw)
+        except BaseException:
+            self.world.close()
+            raise
+
+    # Validation reads only max_seq: the engine's own rules, on the host.
+    validate = GenerationEngine.validate
+
+    def submit(self, prompt: List[int], max_new_tokens: int,
+               temperature: float = 0.0, seed: Optional[int] = None,
+               stop: Optional[List[List[int]]] = None) -> int:
+        self.validate(prompt, max_new_tokens, temperature, seed, stop)
+        rid = self._next_id
+        self._next_id += 1
+        self._ops.append(("submit", rid, (list(prompt), max_new_tokens,
+                                          temperature, seed, stop)))
+        self.queue.append(_Held(rid))
+        return rid
+
+    def cancel(self, req_id: int) -> bool:
+        self._ops.append(("cancel", req_id, None))
+        for i, r in enumerate(self.queue):
+            if r.req_id == req_id:
+                del self.queue[i]
+                return True
+        for slot, r in enumerate(self.active):
+            if r is not None and r.req_id == req_id:
+                self.active[slot] = None
+                return True
+        return self.done.pop(req_id, None) is not None
+
+    def step(self) -> list:
+        ops, self._ops = self._ops, []
+        replies = self.world.run(_rank_step, self.key, ops)
+        reply = replies[0]
+        for rank, other in enumerate(replies[1:], 1):
+            if other != reply:
+                raise RuntimeError(
+                    f"tp serving: rank {rank} diverged from rank 0 in a "
+                    f"step: events {other['events']} against "
+                    f"{reply['events']}")
+        self.done.update(reply["done"])
+        self.queue = [_Held(rid) for rid in reply["queue"]]
+        self.active = [None if rid is None else _Held(rid)
+                       for rid in reply["active"]]
+        self.spec_stats = reply["spec_stats"]
+        return reply["events"]
+
+    def close(self) -> None:
+        self.world.close()
 
 
 class LMBackend:
@@ -68,26 +188,19 @@ class LMBackend:
                  speculative_ngram: int = 2, tp: int = 1,
                  prefill_chunk: int = 0,
                  device: Device = None):
-        if tp > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1) is not ported yet; it "
-                "comes with serving under tensor parallelism (A7c) of "
-                "ROADMAP.md")
+        kw = dict(max_slots=max_slots, eos_id=eos_id, max_seq=max_seq,
+                  speculative_k=speculative_k,
+                  speculative_ngram=speculative_ngram,
+                  prefill_chunk=prefill_chunk)
         if paged:
             # Paged KV: cache memory bounded by num_pages instead of
             # max_slots * max_seq; admission queues FIFO on page budget.
-            self.engine = PagedGenerationEngine(
-                params, cfg, max_slots=max_slots, eos_id=eos_id,
-                max_seq=max_seq, page_size=page_size, num_pages=num_pages,
-                speculative_k=speculative_k,
-                speculative_ngram=speculative_ngram,
-                prefill_chunk=prefill_chunk, device=device)
+            kw.update(page_size=page_size, num_pages=num_pages)
+        if tp > 1:
+            self.engine = _TpEngine(params, cfg, tp, paged, kw, device)
         else:
-            self.engine = GenerationEngine(
-                params, cfg, max_slots=max_slots, eos_id=eos_id,
-                max_seq=max_seq, speculative_k=speculative_k,
-                speculative_ngram=speculative_ngram,
-                prefill_chunk=prefill_chunk, device=device)
+            cls = PagedGenerationEngine if paged else GenerationEngine
+            self.engine = cls(params, cfg, device=device, **kw)
         self.default_max_new_tokens = default_max_new_tokens
         self.stream_idle_timeout_s = stream_idle_timeout_s
         # RLock: stream_poll -> _expire_idle_streams -> stream_cancel
@@ -180,7 +293,8 @@ class LMBackend:
     def close(self) -> None:
         """Fail every live request, stop the pump thread and drop the
         engine: its KV cache and workspace are freed once nothing else
-        holds them. Later calls raise ReplicaUnavailableError. Idempotent."""
+        holds them (under tp, its world of ranks stops). Later calls raise
+        ReplicaUnavailableError. Idempotent."""
         with self._cond:
             if self._closed:
                 return
@@ -193,8 +307,10 @@ class LMBackend:
         if pump is not None and pump is not threading.current_thread():
             pump.join()
         with self._cond:
-            self.engine = None
+            engine, self.engine = self.engine, None
             self._pump_thread = None
+        if isinstance(engine, _TpEngine):
+            engine.close()
 
     # The runtime's actor-teardown hook (LocalActor.kill).
     __ray_shutdown__ = close
@@ -210,15 +326,18 @@ class LMBackend:
                       f"{type(self._poisoned).__name__}: {self._poisoned}")
 
     def check_health(self) -> dict:
-        with self._cond:
-            if self._closed:
-                return {"healthy": False, "reason": "closed"}
-            if self._poisoned is None:
-                return {"healthy": True}
-            return {"healthy": False,
-                    "reason": f"engine poisoned: "
-                              f"{type(self._poisoned).__name__}: "
-                              f"{self._poisoned}"}
+        # Without the lock: the pump holds it through each step and takes
+        # it straight back for the next, so a probe that waited for it
+        # could time out while the backend decodes (a tp step, a round
+        # trip through the ranks, holds it longest). Two attribute reads.
+        poisoned = self._poisoned
+        if self._closed:
+            return {"healthy": False, "reason": "closed"}
+        if poisoned is None:
+            return {"healthy": True}
+        return {"healthy": False,
+                "reason": f"engine poisoned: {type(poisoned).__name__}: "
+                          f"{poisoned}"}
 
     @accept_batch
     def __call__(self, requests: List[ServeRequest]) -> List[List[int]]:

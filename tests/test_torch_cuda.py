@@ -1246,3 +1246,68 @@ def test_mesh_forward_on_the_card_matches_one_process(dev):
                     got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
                 assert staged["bytes"] == expect[axis], (axis, staged)
                 assert staged["copy_s"] > 0 and staged["comm_s"] > 0
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_tp_engine_on_the_card_matches_one_process(dev, paged):
+    """Serving under tp2 on the card: a 2-rank world sharing it, each rank's
+    engine over its 2 of 4 kv heads. Every decode tick launches 2L + 1 K1
+    and L of K6 (K7 when paged) in each rank, the cache or pool is at KH/tp
+    heads, and the f32 greedy tokens equal one process's engine on the
+    card."""
+    from ray_tpu_torch.models import TransformerConfig, init_params
+    from ray_tpu_torch.models.engine import GenerationEngine
+    from ray_tpu_torch.models.paged_engine import PagedGenerationEngine
+    from ray_tpu_torch.parallel import World
+
+    cfg = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+               n_kv_heads=4, d_ff=512, max_seq_len=256)
+    kw = dict(max_slots=4, page_size=64) if paged else dict(max_slots=4)
+    prompts = [[(7 * i + j) % 512 for j in range(5 + 9 * i)]
+               for i in range(6)]
+
+    def rank():
+        import torch
+        from ray_tpu_torch.models import TransformerConfig, init_params
+        from ray_tpu_torch.models.engine import GenerationEngine
+        from ray_tpu_torch.models.paged_engine import PagedGenerationEngine
+        from ray_tpu_torch.ops import attention, fused, paged_attention
+        from ray_tpu_torch.parallel import make_mesh
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_mesh({"tp": 2})
+        c = TransformerConfig(dtype=torch.float32, **cfg)
+        params = init_params(torch.Generator(device=mesh.device)
+                             .manual_seed(0), c, device=mesh.device)
+        cls = PagedGenerationEngine if paged else GenerationEngine
+        eng = cls(params, c, mesh=mesh, **kw)
+        counters = (fused.rms_norm, fused.add_rms_norm,
+                    attention.decode_attention,
+                    paged_attention.paged_decode_attention)
+        decode, ticks = eng._decode_all, []
+
+        def counted():
+            before = [f.launches for f in counters]
+            logits = decode()
+            ticks.append([f.launches - b for f, b in zip(counters, before)])
+            return logits
+
+        eng._decode_all = counted
+        ids = [eng.submit(p, 12) for p in prompts]
+        res = eng.run_until_done()
+        store = eng.k_pages if paged else eng.cache_k
+        return [res[i] for i in ids], ticks, tuple(store.shape)
+
+    c = TransformerConfig(dtype=torch.float32, **cfg)
+    params = init_params(_gen(0), c, device=dev)
+    one = (PagedGenerationEngine if paged else GenerationEngine)(
+        params, c, **kw)
+    ids = [one.submit(p, 12) for p in prompts]
+    res = one.run_until_done()
+    want = [res[i] for i in ids]
+    L = c.n_layers
+    per_tick = [1, 2 * L, 0, L] if paged else [1, 2 * L, L, 0]
+    with World(2) as world:
+        for outs, ticks, shape in world.run(rank):
+            assert outs == want
+            assert ticks and all(t == per_tick for t in ticks)
+            assert shape[-2] == c.n_kv_heads // 2

@@ -199,16 +199,20 @@ def test_stop_sequences_and_cancel(model):
     assert eng.run_until_done() == {}
 
 
-def test_unported_features_raise_naming_the_slice(model):
+def test_unported_features_raise_naming_the_slice(model, monkeypatch):
+    """The tp features are ported (tests/test_torch_engine_tp.py); what is
+    left to refuse is a mesh that is not the port's, and tp serving
+    without a card when the CPU is not asked for."""
     _, _, tcfg, tparams = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel Mesh"):
         teng.GenerationEngine(tparams, tcfg, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel Mesh"):
         PagedGenerationEngine(tparams, tcfg, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMBackend(tparams, tcfg, paged=True, tp=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMBackend(tparams, tcfg, tp=2, device=CPU)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMBackend(tparams, tcfg, paged=True, tp=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMBackend(tparams, tcfg, tp=2)
 
 
 # ------------------------------------------------------------ LMBackend

@@ -580,7 +580,12 @@ def test_a_probe_under_way_at_shutdown_builds_no_replica():
     """A reconcile pass whose probe is still out when serve.shutdown() runs
     finds the registry cleared when the probe comes back unhealthy, and
     builds no replacement (that replica would outlive its master); its
-    thread then ends."""
+    thread then ends. The wait is for the reconcile threads this test's
+    serves started: under xdist's --dist loadfile a worker runs other files
+    in the same process, whose masters' threads (a crashed and restarted
+    master's, in test_observability.py) can still be winding down."""
+    stale = {t for t in threading.enumerate() if t.name == "serve-reconcile"}
+
     def prog(rt, sv, master):
         probing, release = threading.Event(), threading.Event()
         built = []
@@ -606,7 +611,7 @@ def test_a_probe_under_way_at_shutdown_builds_no_replica():
 
         def reconciler():
             return [t for t in threading.enumerate()
-                    if t.name == "serve-reconcile"]
+                    if t.name == "serve-reconcile" and t not in stale]
         gone = _wait_for(lambda: not reconciler(), timeout=10)
         return len(built), gone
 
