@@ -160,8 +160,10 @@ it fails:
    after kill(), when the card's free memory (device-wide) rises by at
    least the actor's KV cache; (e) a 256 MiB CUDA tensor doubled by a task
    on another node, its bits checked, with the copy and transfer rates;
-   (f) after shutdown() and the cluster's, none of the phase's processes,
-   /dev/shm segments or spill directories is left;
+   (f) no node declared dead while the phase ran (the GCS's event log holds
+   no node_down), with the GCS loop's slowest callbacks printed; after
+   shutdown() and the cluster's, none of the phase's processes, /dev/shm
+   segments or spill directories is left;
 12. the operator's path, through the entry points an operator and a C host
    use: (a) ``python -m ray_tpu_torch.scripts.cli start --head`` with no
    --device (its GCS places on the card) and ``start --address`` for one
@@ -281,7 +283,32 @@ it fails:
    5,000 tasks in flight, the leader SIGKILLed; every result arrives once
    with its value, the promoted leader places on the card, the dead
    leader's CUDA context memory comes back; it prints the seconds from
-   the kill to the promotion and to the last result.
+   the kill to the promotion and to the last result;
+17. the tune and util libraries (ray_tpu_torch.tune, ray_tpu_torch.util) on
+   the card: (a) tune.run of TPUTrainer.as_trainable under
+   PopulationBasedTraining, two trials at once with resources_per_trial
+   {"CPU": 1, "GPU": 0.5}, each a TPUTrainer of one worker on the dense
+   flagship (bf16, f32 params, AdamW) at batch 4 x seq 2048, learning
+   rates 1e-5 and 1e-3, perturbation_interval 2, 6 iterations of one step:
+   every trial TERMINATED, tune.run's launches (the trials stepping at
+   once) exactly phase 5's per step times the steps logged, at least one
+   exploit, after which the recipient's parameters, AdamW moments and step
+   equal the donor's saved ones bit for bit (a digest mixed on the card,
+   equal also to the donor's own step's) and it steps at its explored
+   learning rate, the best trial's loss falling, no object spilled, and
+   the card's free memory back after tune.run within LIB_MEM_MARGIN and by
+   at least one trial's state; it prints an iteration's wall, the
+   exploit's blob bytes and the seconds from the save to the restore; (b)
+   a util.ActorPool of 2 actors (num_gpus=0.5), each a GenerationEngine
+   over the driver's flagship parameters (at their data_ptr): phase 3's 12
+   prompts through pool.map in two halves, every token equal to phase 3's
+   but where the first difference lies at a near tie (FLIP_ULPS bf16 ulps
+   of phase 15's one-process gaps), the two actors serving at once and the
+   launches 17 K1 for each prefill and tick and 8 K6 for each tick; kill()
+   frees both KV caches and the GPU; then util.multiprocessing.Pool(2).map
+   of K1 over 8 row blocks of a CUDA tensor: one launch a block, on the
+   block in place, against the plain version; the card's free memory back
+   after both pools.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -291,6 +318,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
 import hashlib
 import http.client
@@ -390,6 +418,32 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTED.items()}
+
+
+# Where phases 11-17 put their tensors, ranks and actors, and where the
+# cluster's GCS must place: the card. A CPU rehearsal sets "cpu" (with the
+# kernels' plain versions counting launches).
+DEVICE = "cuda"
+
+
+def dev_sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def dev_free() -> int:
+    """The card's free bytes, device-wide, after a collect, with this
+    process's cached blocks handed back (0 on the CPU). cuBLAS keeps a
+    workspace for each handle a thread used after the thread ends (actor
+    threads), and one carved from a large freed segment keeps the whole
+    segment reserved: they are cleared first."""
+    gc.collect()
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
 
 
 def card_line() -> str:
@@ -3607,20 +3661,21 @@ def serve_checks(params, cfg, main: dict, paged: dict, direct_growth: int,
 # The cluster: a head of 8 CPUs and the card with its colocated node
 # controller, and three nodes of 2 CPUs, so that a placement tick takes the
 # matrix path from 257 entries (len(entries) * alive nodes > 1024). The
-# burst: 2 waves of 5,000 no-op tasks, each gated on one object, so that a
-# wave reaches the GCS as one tick (the first cold, the second on the card);
+# burst: 2 waves of 5,000 no-op tasks, each gated on one task that the
+# driver lets go only once the GCS holds the whole wave waiting on it, so
+# that a wave reaches the placement loop as one tick (the first cold, the
+# second on the card);
 # the map stage: 8 mappers of 4 MiB each (above the inline limit, so the GCS
 # directory holds their sizes).
 CL_HEAD = {"CPU": 8, "GPU": 1}
 CL_NODES, CL_NODE = 3, {"CPU": 2}
 CL_KNOBS = {"RAY_TPU_TORCH_PG_KERNEL": "1", "RAY_TPU_TORCH_REASON_KERNEL": "1",
             "RAY_TPU_TORCH_LOCALITY_KERNEL": "1"}
-CL_WAVES, CL_WAVE, CL_GATE_S = 2, 5000, 1.0
+CL_WAVES, CL_WAVE = 2, 5000
 CL_MAPS, CL_MAP_BYTES = 8, 4 * 2**20
 CL_IN_BUNDLE = 0.5         # CPUs a task in a 1-CPU bundle asks (C9)
 CL_PASSES = ("place", "warmup", "gang", "reason", "locality")
 CL_TENSOR = 64 * 2**20     # float32 elements: 256 MiB
-CL_DEVICE = "cuda"         # where the GCS must place
 
 
 class ClusterServer(Server):
@@ -3668,9 +3723,40 @@ def median_tick_ms(ticks) -> float:
     return float(np.median([ms for _, ms in ticks])) if ticks else float("nan")
 
 
-def cl_gate(seconds):
-    time.sleep(seconds)
+def cl_gate(path):
+    """Returns once ``path`` exists (at most 120 s)."""
+    deadline = time.monotonic() + 120.0
+    while not os.path.exists(path) and time.monotonic() < deadline:
+        time.sleep(0.005)
     return 0
+
+
+def gated_wave(fn, n: int, what: str) -> tuple:
+    """``n`` tasks of ``fn`` on one gate task, let go once the GCS holds all
+    of them waiting for it, so that they reach its placement loop as one
+    tick. A gate of fixed length split a wave whenever the GCS read the
+    submits slower than the gate ran. (refs, the gate's ref, submit s)."""
+    folder = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    path = os.path.join(folder, "open")
+    g = rt.remote(cl_gate).remote(path)
+    t0 = time.perf_counter()
+    refs = [fn.remote(g) for _ in range(n)]
+    sub_s = time.perf_counter() - t0
+
+    # Polled at 10 Hz: each poll scans the GCS's whole task table.
+    deadline = time.monotonic() + 120.0
+    while rt.state.summarize_tasks()["pending_reasons"].get(
+            "waiting-for-deps", 0) < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: the GCS did not hold the wave's "
+                                 f"{n} tasks on the gate within 120 s")
+        time.sleep(0.1)
+    open(path, "w").close()
+    try:
+        rt.get(g, timeout=60)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return refs, g, sub_s
 
 
 def cl_noop(x=None):
@@ -3838,13 +3924,11 @@ def cluster_placement(card: str):
     STRICT_SPREAD group (gang pass), an infeasible task (reason pass) and a
     map stage (locality pass). Every pass counted on the card, none fell
     back. Returns the group, whose bundles (e) uses."""
-    gate, fn = rt.remote(cl_gate), rt.remote(cl_noop)
+    fn = rt.remote(cl_noop)
     waves, routes = [], []
     for w in range(CL_WAVES):
-        g = gate.remote(CL_GATE_S)
         t0 = time.perf_counter()
-        refs = [fn.remote(g) for _ in range(CL_WAVE)]
-        sub_s = time.perf_counter() - t0
+        refs, g, sub_s = gated_wave(fn, CL_WAVE, f"(c) wave {w}")
         if rt.get(refs, timeout=600) != [None] * CL_WAVE:
             raise AssertionError(f"(c) wave {w}: results are wrong")
         wall_s = time.perf_counter() - t0
@@ -3868,15 +3952,15 @@ def cluster_placement(card: str):
     buckets = sorted({int(k.split(":")[1]) for k in perf if ":" in k})
     steps = [(k - k0, n - n0) for (k, n), (k0, n0)
              in zip(routes, [(0, 0)] + routes[:-1])]
-    log(f"  (c) {CL_WAVES} waves of {CL_WAVE} no-op tasks, each gated on a "
-        f"{CL_GATE_S} s task, {CL_WAVES * CL_WAVE} in all: (submit s, wave "
+    log(f"  (c) {CL_WAVES} waves of {CL_WAVE} no-op tasks, each gated on one "
+        f"task, {CL_WAVES * CL_WAVE} in all: (submit s, wave "
         f"wall s) {waves}; matrix ticks of each wave (on the card, on "
         f"numpy) {steps}")
     log(f"  (c) matrix ticks by bucket (T rounded up to a power of two) "
         f"{buckets}; the GCS's per-bucket EMAs {perf}; device passes "
         f"{cells}; phase:gcs_place {stats['handlers']['phase:gcs_place']} "
         f"[{card}]")
-    if perf.get("device", "").split(":")[0] != CL_DEVICE:
+    if perf.get("device", "").split(":")[0] != DEVICE:
         raise AssertionError(f"(c) the place device is {perf.get('device')}")
     if not cells.get("kernel:place") or not cells.get("kernel:warmup"):
         raise AssertionError(f"(c) the placement pass never ran on the "
@@ -4119,6 +4203,24 @@ def driver_node() -> str:
                 if tuple(n["Address"]) == home)
 
 
+def cluster_liveness() -> None:
+    """(f) Every node lived through the phase. C16: a stall of the GCS's
+    loop past the heartbeat timeout once made its checker declare all four
+    nodes dead at once, and (d)'s task then waited for ever on a put whose
+    only copy lay on a node the GCS counted as dead."""
+    core = global_core()
+    downs = core.cluster_events(kind="node_down")
+    stalls = [e["seconds"] for e in core.cluster_events(kind="gcs_stall")]
+    slow = core.gcs.call({"type": "get_loop_stats"})["slow"].get("gcs", [])
+    if downs:
+        raise AssertionError(f"(f) nodes declared dead during the phase: "
+                             f"{downs}; the GCS loop's stalls (s) {stalls}, "
+                             f"its slowest callbacks {slow[:5]}")
+    log(f"  (f) no node declared dead during the phase; the heartbeat "
+        f"checker held up (s) {stalls}; the GCS loop's slowest callbacks "
+        f"(name, count, total s, max s) {slow[:3]}")
+
+
 def cluster_teardown(cluster, shm0: set, spill0: set, card: str) -> None:
     """(f) shutdown() and the cluster's shutdown leave no process, segment
     or spill directory of the port."""
@@ -4157,6 +4259,7 @@ def cluster_path(params, cfg, main: dict, card: str) -> dict:
         cluster_flagship(params, cfg, main, card)
         rates["tensor_gbps"] = cluster_cuda_tensor(pg, other, card)
         rt.remove_placement_group(pg)
+        cluster_liveness()
     except BaseException:
         rt.shutdown()
         cluster.shutdown()
@@ -4174,7 +4277,7 @@ def cluster_path(params, cfg, main: dict, card: str) -> dict:
 # nodes (len(entries) * alive nodes > 1024): 2 waves of 5,000 gated no-op
 # tasks, as phase 11's.
 OP_HEAD, OP_NODE = {"CPU": 4, "GPU": 1}, {"CPU": 2}
-OP_WAVES, OP_WAVE, OP_GATE_S = 2, 5000, 1.0
+OP_WAVES, OP_WAVE = 2, 5000
 OP_ACTOR = "chip_smoke:CapiServer"     # the C host's actor class
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -4259,7 +4362,7 @@ def op_start(env: dict, card: str) -> str:
     subprocess.run([sys.executable, "-c", "import torch"], check=True)
     torch_s = time.perf_counter() - t0
     device = gcs_stats()["place_perf"].get("device", "")
-    if device.split(":")[0] != CL_DEVICE:
+    if device.split(":")[0] != DEVICE:
         raise AssertionError(f"(a) the CLI-started GCS places on {device!r}")
     log(f"  (a) cli start --head (no --device) {head_s:.3f} s, cli start "
         f"--address {node_s:.3f} s, the node alive {join_s:.3f} s later; "
@@ -4267,16 +4370,14 @@ def op_start(env: dict, card: str) -> str:
         f"{status.stdout.split('total resources:')[1].splitlines()[0].strip()}"
         f"; the GCS places on {device}; a bare `python -c 'import torch'` "
         f"{torch_s:.3f} s [{card}]")
-    gate, fn = rt.remote(cl_gate), rt.remote(cl_noop)
+    fn = rt.remote(cl_noop)
     walls = []
     for w in range(OP_WAVES):
-        g = gate.remote(OP_GATE_S)
         t0 = time.perf_counter()
-        if rt.get([fn.remote(g) for _ in range(OP_WAVE)],
-                  timeout=600) != [None] * OP_WAVE:
+        refs, g, _ = gated_wave(fn, OP_WAVE, f"(a) wave {w}")
+        if rt.get(refs, timeout=600) != [None] * OP_WAVE:
             raise AssertionError(f"(a) wave {w}: results are wrong")
         walls.append(round(time.perf_counter() - t0, 3))
-        rt.get(g, timeout=60)
         if w == 0:
             wait_until("(a) the GCS's warm-up of the wave's bucket",
                        lambda: kernel_cells(gcs_stats()), timeout=120)
@@ -4506,13 +4607,10 @@ TT_WORKERS, TT_B, TT_STEPS = 2, 4, 3
 # (e): the vision family at VisionConfig()'s defaults, trained through
 # MeshTrainer on the quadrant task.
 VIS_STEPS, VIS_B = 30, 256
-# Where phase 13 runs: the card (a CPU rehearsal sets "cpu", with the
-# kernels' plain versions counting launches).
-TL_DEVICE = "cuda"
 
 
 def tl_gen(seed: int) -> torch.Generator:
-    return torch.Generator(device=TL_DEVICE).manual_seed(seed)
+    return torch.Generator(device=DEVICE).manual_seed(seed)
 
 
 def check_step_counts(what: str, seen: dict, want: dict) -> dict:
@@ -4571,7 +4669,7 @@ def moe_train(card: str) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    params = moe_tr.init_params(tl_gen(SEED + 20), cfg, device=TL_DEVICE)
+    params = moe_tr.init_params(tl_gen(SEED + 20), cfg, device=DEVICE)
     n_params = sum(t.numel() for t in named_leaves(params).values())
     init_opt, train_step = moe_tr.make_train_step(cfg)
     opt = init_opt(params)
@@ -4579,7 +4677,7 @@ def moe_train(card: str) -> dict:
         raise AssertionError("MoE AdamW weight decay is not optax's 1e-4")
     rng = np.random.default_rng(SEED + 21)
     batch = {"tokens": torch.from_numpy(rng.integers(
-        0, V, (MOE_B, TRAIN_T + 1))).to(TL_DEVICE)}
+        0, V, (MOE_B, TRAIN_T + 1))).to(DEVICE)}
     per_step = train_per_step(L)
     losses, auxes, walls, dropped = [], [], [], None
     torch.cuda.synchronize()
@@ -4660,11 +4758,11 @@ def moe_vs_dense(card: str) -> None:
                                 d_ff=FLAGSHIP["d_ff"], dtype=dt,
                                 **{**MOE, "capacity_factor": cf})
         base = moe_mod.init_moe_params(tl_gen(SEED + 23), cfg,
-                                       device=TL_DEVICE)
+                                       device=DEVICE)
         g = tl_gen(SEED + 24)
         x = torch.randn(MOE_CHECK_B, MOE_CHECK_T, cfg.d_model, generator=g,
-                        device=TL_DEVICE).to(dt)
-        gy = torch.randn(x.shape, generator=g, device=TL_DEVICE)
+                        device=DEVICE).to(dt)
+        gy = torch.randn(x.shape, generator=g, device=DEVICE)
         outs = []
         for fn in (moe_mod.moe_ffn_routed, moe_mod._moe_ffn_dense_ref):
             p = {k: v.clone().requires_grad_(True) for k, v in base.items()}
@@ -4720,7 +4818,7 @@ def moe_card_vs_cpu(card: str) -> None:
     cfg = moe_tr.MoETransformerConfig(dtype=torch.float32, **FLAGSHIP,
                                       **MOE)
     K = cfg.top_k
-    gpu = moe_tr.init_params(tl_gen(SEED + 25), cfg, device=TL_DEVICE)
+    gpu = moe_tr.init_params(tl_gen(SEED + 25), cfg, device=DEVICE)
     cpu = tree_map(lambda t: t.detach().cpu(), gpu)
     tokens = np.random.default_rng(SEED + 26).integers(
         0, cfg.vocab_size, (1, 257))
@@ -4793,7 +4891,7 @@ def tpu_trainer_path(train: dict, card: str) -> None:
     sums = []
 
     def init_fn(gen):
-        params = init_params(gen, cfg, device=TL_DEVICE)
+        params = init_params(gen, cfg, device=DEVICE)
         sums.append([t.double().sum().item()
                      for t in named_leaves(params).values()])
         return params
@@ -4801,7 +4899,7 @@ def tpu_trainer_path(train: dict, card: str) -> None:
     def data_creator(rank, world, config):
         rng = np.random.default_rng(SEED + 30 + rank)
         tokens = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (TT_B, TRAIN_T + 1))).to(TL_DEVICE)
+            0, cfg.vocab_size, (TT_B, TRAIN_T + 1))).to(DEVICE)
         while True:
             yield {"tokens": tokens}
 
@@ -4812,7 +4910,7 @@ def tpu_trainer_path(train: dict, card: str) -> None:
         trainer = TPUTrainer(init_fn, lambda p, b: loss_fn(p, b, cfg),
                              data_creator, num_workers=TT_WORKERS,
                              num_cpus_per_worker=1, max_retries=1,
-                             device=TL_DEVICE)
+                             device=DEVICE)
         start_s = time.perf_counter() - t0
         if len(sums) != 1 + TT_WORKERS or any(s != sums[0] for s in sums):
             raise AssertionError("(d) the ranks' initial parameters differ "
@@ -4879,8 +4977,8 @@ def quadrant_batches(cfg, n: int, count: int, seed: int) -> list:
         inside = ((yy >= y0) & (yy < y0 + half) & (xx >= x0)
                   & (xx < x0 + half))
         imgs[inside] = 1.0
-        out.append({"images": torch.from_numpy(imgs).to(TL_DEVICE),
-                    "labels": torch.from_numpy(labels).to(TL_DEVICE)})
+        out.append({"images": torch.from_numpy(imgs).to(DEVICE),
+                    "labels": torch.from_numpy(labels).to(DEVICE)})
     return out
 
 
@@ -4896,9 +4994,9 @@ def vision_path(card: str) -> None:
         f"3e-3")
     data = quadrant_batches(cfg, VIS_B, VIS_STEPS + 1, SEED + 40)
     trainer = MeshTrainer(
-        lambda gen: init_vision_params(gen, cfg, device=TL_DEVICE),
+        lambda gen: init_vision_params(gen, cfg, device=DEVICE),
         lambda p, b: vision_loss(p, b, cfg), learning_rate=3e-3,
-        seed=SEED + 41, device=TL_DEVICE)
+        seed=SEED + 41, device=DEVICE)
     first = trainer.train_step(data[0])
     stats = trainer.train(iter(data[1:VIS_STEPS]), VIS_STEPS - 1)
     last = stats["last_loss"]
@@ -4971,8 +5069,6 @@ MESH_UL_BF16 = (8, 2048, 16, 64)
 # (ring_attention._block_step; 2.44 measured at t = 512 on the CPU with
 # saved_tensors_hooks, falling with t): sizes sp2's batch in (b).
 RING_SAVED = 2.5
-# Where phase 14 runs: the card (a CPU rehearsal sets "cpu").
-MESH_DEVICE = "cuda"
 
 
 def mesh_per_step(layout: str, L: int) -> dict:
@@ -4999,7 +5095,7 @@ def mesh_sp_batch() -> int:
     """(b)'s sp2 batch: TRAIN_B unless the ring's saved scores of both
     ranks would take more than half the card's free memory, then the
     largest power-of-two cut that fits (the width is never cut)."""
-    free = (torch.cuda.mem_get_info()[0] if MESH_DEVICE == "cuda"
+    free = (torch.cuda.mem_get_info()[0] if DEVICE == "cuda"
             else float("inf"))
     H, T, L = FLAGSHIP["n_heads"], TRAIN_T, FLAGSHIP["n_layers"]
     B = TRAIN_B
@@ -5660,12 +5756,12 @@ def moe_f32_losses(card: str) -> list:
                                       **MOE)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    params = moe_tr.init_params(tl_gen(SEED + 20), cfg, device=TL_DEVICE)
+    params = moe_tr.init_params(tl_gen(SEED + 20), cfg, device=DEVICE)
     init_opt, train_step = moe_tr.make_train_step(cfg)
     opt = init_opt(params)
     batch = {"tokens": torch.from_numpy(np.random.default_rng(
         SEED + 21).integers(0, cfg.vocab_size,
-                            (MOE_B, TRAIN_T + 1))).to(TL_DEVICE)}
+                            (MOE_B, TRAIN_T + 1))).to(DEVICE)}
     t0 = time.perf_counter()
     losses = []
     for _ in range(MESH_STEPS):
@@ -5676,9 +5772,7 @@ def moe_f32_losses(card: str) -> list:
         f"{MESH_STEPS} steps of phase 13's: losses {losses} "
         f"({time.perf_counter() - t0:.1f} s) [{card}]")
     del params, opt, batch
-    gc.collect()
-    if TL_DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    dev_free()
     return losses
 
 
@@ -5689,12 +5783,9 @@ def mesh_path(train: dict, moe: dict, card: str) -> dict:
     t0 = time.perf_counter()
     # The ranks share the card with this process: hand its cached blocks
     # back first.
-    gc.collect()
-    if MESH_DEVICE == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+    dev_free()
     sp_b = mesh_sp_batch()
-    free = (torch.cuda.mem_get_info()[0] / 2 ** 30 if MESH_DEVICE == "cuda"
+    free = (torch.cuda.mem_get_info()[0] / 2 ** 30 if DEVICE == "cuda"
             else float("nan"))
     log(f"phase 14: meshes for training, one world of {MESH_RANKS} rank "
         f"processes on the card (gloo, collectives staged through pinned "
@@ -5704,7 +5795,7 @@ def mesh_path(train: dict, moe: dict, card: str) -> dict:
            "moe_dropped": moe["dropped"], "sp_batch": sp_b,
            "moe_f32_losses": moe_f32_losses(card)}
     ranks = launch(mesh_rank_entry, MESH_RANKS, ref, card,
-                   device=MESH_DEVICE)
+                   device=DEVICE)
     for part in ("bf16",):
         for name in ranks[0][part]:
             losses = [r[part][name]["losses"] for r in ranks]
@@ -5721,7 +5812,6 @@ def mesh_path(train: dict, moe: dict, card: str) -> dict:
 # ---------------- phase 15: serving under tensor parallelism (A7c)
 
 TP_RANKS = 2
-TP_DEVICE = "cuda"     # the ranks' device (a CPU rehearsal sets "cpu")
 TP_F32_LAYERS = 2      # (d): the flagship's widths at this depth, in f32
 TP_F32_SEED = SEED + 30
 
@@ -5741,7 +5831,7 @@ def _f32_reorder_bound() -> float:
 
 
 def tp_gen(seed: int) -> torch.Generator:
-    return torch.Generator(device=TP_DEVICE).manual_seed(seed)
+    return torch.Generator(device=DEVICE).manual_seed(seed)
 
 
 def tp_rank_entry(job: str, card: str):
@@ -6049,7 +6139,7 @@ def tp_references(params, cfg, main: dict, paged: dict, spec: dict) -> dict:
     to its phase's tokens (the same engine on the same requests gives the
     same bits), under GapProbes: the near ties the tp runs are held to."""
     V = cfg.vocab_size
-    common = dict(max_slots=SLOTS, max_seq=MAX_SEQ, device=TP_DEVICE)
+    common = dict(max_slots=SLOTS, max_seq=MAX_SEQ, device=DEVICE)
     prompts = serving_prompts(V)
     _, _, shared, long_prompt = paged_traffic(V)
     quoting = spec_traffic(V)["quoting"]
@@ -6094,9 +6184,7 @@ def tp_references(params, cfg, main: dict, paged: dict, spec: dict) -> dict:
                                      f"phase 3c's tokens")
             refs["c", name] = {"outs": outs, "gaps": g.gaps}
             del eng, g
-    gc.collect()
-    if TP_DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    dev_free()
     return refs
 
 
@@ -6105,10 +6193,10 @@ def tp_f32_reference(card: str) -> dict:
     seed, every decode tick's logits kept."""
     cfg = TransformerConfig(dtype=torch.float32,
                             **dict(FLAGSHIP, n_layers=TP_F32_LAYERS))
-    params = init_params(tp_gen(TP_F32_SEED), cfg, device=TP_DEVICE)
+    params = init_params(tp_gen(TP_F32_SEED), cfg, device=DEVICE)
     with torch.inference_mode():
         eng = engine_mod.GenerationEngine(params, cfg, max_slots=SLOTS,
-                                          max_seq=MAX_SEQ, device=TP_DEVICE)
+                                          max_seq=MAX_SEQ, device=DEVICE)
         probe = TpProbe(eng, keep=True)
         outs = run_engine(eng, [(p, NEW_TOKENS, {})
                                 for p in serving_prompts(cfg.vocab_size)])
@@ -6183,11 +6271,11 @@ def tp_serve(params, cfg, a: dict, refs: dict, card: str) -> dict:
                 ("paged", dict(paged=True, page_size=PAGE,
                                speculative_k=SPEC_K - 1), shared,
                  pool_bytes)):
-            free0 = tp_free()
+            free0 = dev_free()
             t0 = time.perf_counter()
             serve.create_backend(f"lm:tp-{tag}", LMBackend, params, cfg,
                                  tp=TP_RANKS, max_slots=SLOTS,
-                                 max_seq=MAX_SEQ, device=TP_DEVICE,
+                                 max_seq=MAX_SEQ, device=DEVICE,
                                  config=bc, **kw)
             start_s = time.perf_counter() - t0
             serve.create_endpoint(f"tp-{tag}", backend=f"lm:tp-{tag}")
@@ -6198,7 +6286,7 @@ def tp_serve(params, cfg, a: dict, refs: dict, card: str) -> dict:
             streamed = list(h.stream(reqs[1], max_new_tokens=NEW_TOKENS))
             batch_s = time.perf_counter() - t0
             stats = rt.get(h.options(method="stats").remote(), timeout=60)
-            free1 = tp_free()
+            free1 = dev_free()
             if tag == "contig":
                 if outs != a["outs"] or streamed != outs[1]:
                     raise AssertionError("(e) LMBackend(tp=2) behind serve "
@@ -6217,8 +6305,8 @@ def tp_serve(params, cfg, a: dict, refs: dict, card: str) -> dict:
                 serve.shutdown()
             want = TP_RANKS * per_rank
             wait_until(f"(e) {tag}: the card's memory back by both ranks' "
-                       f"KV stores", lambda: tp_free() - free1 >= want, 60)
-            back = tp_free() - free1
+                       f"KV stores", lambda: dev_free() - free1 >= want, 60)
+            back = dev_free() - free1
             log(f"  (e) {tag}: serve.create_backend(LMBackend, tp=2) ready "
                 f"in {start_s:.2f} s; {len(reqs)} requests and one stream "
                 f"through the handle in {batch_s:.3f} s, "
@@ -6234,13 +6322,6 @@ def tp_serve(params, cfg, a: dict, refs: dict, card: str) -> dict:
         serve.shutdown()
         rt.shutdown()
     return res
-
-
-def tp_free() -> int:
-    """The card's free bytes, device-wide (the ranks are other
-    processes)."""
-    gc.collect()
-    return torch.cuda.mem_get_info()[0] if TP_DEVICE == "cuda" else 0
 
 
 def tp_serve_path(params, cfg, main: dict, paged: dict, spec: dict,
@@ -6264,9 +6345,8 @@ def tp_serve_path(params, cfg, main: dict, paged: dict, spec: dict,
         f"(d)'s f32 run at depth {TP_F32_LAYERS} "
         f"({time.perf_counter() - t_phase:.1f} s)")
     checksum = params_checksum(params)
-    if TP_DEVICE == "cuda":
-        torch.cuda.empty_cache()
-    world = World(TP_RANKS, device=TP_DEVICE)
+    dev_free()
+    world = World(TP_RANKS, device=DEVICE)
     try:
         t0 = time.perf_counter()
         devs = world.run(tp_rank_entry, "hello", card)
@@ -6387,7 +6467,8 @@ def tp_serve_path(params, cfg, main: dict, paged: dict, spec: dict,
         f"{served['contig']['start_s']:.2f} and "
         f"{served['paged']['start_s']:.2f} s for the backends' worlds; "
         f"phase 15 in {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"kernels": kernels, "tick_ms": tick, "one_ms": one}
+    return {"kernels": kernels, "tick_ms": tick, "one_ms": one,
+            "one_process": refs["a"]}
 
 
 # ----------- phase 16: the data plane's legacy paths and head failover (A6c)
@@ -6566,14 +6647,12 @@ def gated_waves(n: int, what: str, max_waves: int) -> tuple:
     until one takes the matrix path on the device: a wave whose bucket is
     cold goes on numpy while the GCS warms the bucket, and the next must
     take the device. (waves, device ticks of the last, the GCS's stats)."""
-    gate, fn = rt.remote(cl_gate), rt.remote(cl_noop)
+    fn = rt.remote(cl_noop)
     for w in range(1, max_waves + 1):
         k0 = kernel_cells(gcs_stats()).get("kernel:place", 0)
-        g = gate.remote(CL_GATE_S)
-        if rt.get([fn.remote(g) for _ in range(n)], timeout=600) \
-                != [None] * n:
+        refs, g, _ = gated_wave(fn, n, f"{what}: wave {w}")
+        if rt.get(refs, timeout=600) != [None] * n:
             raise AssertionError(f"{what}: wave {w}'s results are wrong")
-        rt.get(g, timeout=60)
         stats = gcs_stats()
         ticks = kernel_cells(stats).get("kernel:place", 0) - k0
         if ticks:
@@ -6751,7 +6830,7 @@ def dp_legacy(params, cfg, main: dict, fast: dict, card: str) -> None:
                     or d["relay:wave"] \
                     or not d["relay:opaque"] + d["relay:pickled"] \
                     or any(res.values()) or not cells.get("kernel:place") \
-                    or fell or device != CL_DEVICE:
+                    or fell or device != DEVICE:
                 raise AssertionError(
                     f"(a) GCS counters over the program {d}, device passes "
                     f"{cells}, place device {stats['place_perf']['device']}, "
@@ -6820,7 +6899,7 @@ def dp_failover(card: str) -> None:
             waves0, _, stats0 = gated_waves(HA_WAVE, "(b) the leader",
                                             HA_MAX_WAVES)
             leader_ctx = free_base - torch.cuda.mem_get_info()[0]
-            if stats0["place_perf"]["device"].split(":")[0] != CL_DEVICE \
+            if stats0["place_perf"]["device"].split(":")[0] != DEVICE \
                     or leader_ctx < 64 * 2**20:
                 raise AssertionError(
                     f"(b) the leader places on "
@@ -6863,7 +6942,7 @@ def dp_failover(card: str) -> None:
             waves1, _, stats1 = gated_waves(HA_WAVE, "(b) the promoted "
                                             "leader", HA_MAX_WAVES)
             device = stats1["place_perf"]["device"]
-            if device.split(":")[0] != CL_DEVICE:
+            if device.split(":")[0] != DEVICE:
                 raise AssertionError(f"(b) the promoted leader places on "
                                      f"{device}")
             log(f"  (b) leader and warm standby, both placing on the card "
@@ -6901,6 +6980,435 @@ def data_plane_path(params, cfg, main: dict, fast: dict, card: str) -> None:
     dp_legacy(params, cfg, main, fast, card)
     dp_failover(card)
     log(f"  phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------- phase 17: the tune and util libraries on the card (A8.1)
+
+# (a) PBT over two trials at once, each a TPUTrainer of one worker on the
+# dense flagship (bf16, f32 params, AdamW) at batch TT_B x seq TRAIN_T, one
+# step an iteration; the learning-rate grid and its mutations. Both trials
+# start from the same weights and batch, and PBT compares each trial's
+# latest result, whichever trial has stepped further: at 1e-5 three steps
+# barely move the loss, one step at 1e-3 takes it well below, so the slow
+# trial is the bottom one at iteration 4 at the latest (at 2 if the other
+# has reported 2 by then).
+TUNE_LRS = (1e-5, 1e-3)
+TUNE_MUTATIONS = [1e-5, 1e-4, 3e-4, 1e-3, 3e-3]
+TUNE_ITERS, TUNE_INTERVAL = 6, 2
+TUNE_RESOURCES = {"CPU": 1, "GPU": 0.5}
+# The store holds an exploit's blob (the trainer's f32 parameters and AdamW
+# moments, pickled on the host) as the donor's return value and as the
+# recipient's argument at once, and never spills it.
+TUNE_STORE = 16 * 2**30
+# How far the card's free memory may stay below its value before (a) and
+# before (b), read by dev_free: what stays after its clear is about 32 MiB
+# for each actor thread that ran a matmul, up to 8 threads in (a) (two
+# trials and their workers, and a new pair for each of two exploits). The
+# H100 kept 37.6 and 192.0 MiB after (a) in two runs; the margin is 1.5
+# times the larger. (a) also checks that at least one trial's state (the
+# exploit's blob) comes back.
+LIB_MEM_MARGIN = 288 * 2**20
+# (b) An ActorPool of two GPU actors, each a GenerationEngine over the
+# driver's flagship parameters; Pool.map of K1 over row blocks.
+POOL_ACTORS, POOL_GPUS = 2, 0.5
+POOL_ROWS, POOL_BLOCK = TT_B * TRAIN_T, 1024     # 8 blocks
+
+
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
+def state_digest(trainer) -> str:
+    """A digest of a TPUTrainer's parameters, AdamW state and step, its
+    bits mixed on the card: per tensor, the sums of its elements' bit
+    patterns as int64, plain and weighted by position; only those two
+    numbers a tensor come back to the host."""
+    tensors = list(named_leaves(trainer.params).values())
+    opt = trainer.optimizer.state_dict()["state"]
+    for i in sorted(opt):
+        tensors += [opt[i][k] for k in sorted(opt[i])
+                    if isinstance(opt[i][k], torch.Tensor)]
+    sums = []
+    for t in tensors:
+        bits = t.detach().to(DEVICE).reshape(-1).view(
+            _INT_OF_SIZE[t.element_size()])
+        plain = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        weighted = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        for start in range(0, bits.numel(), 1 << 24):
+            x = bits[start:start + (1 << 24)].to(torch.int64)
+            pos = torch.arange(start, start + x.numel(), device=DEVICE)
+            plain += x.sum()
+            weighted += (x * (pos % 65521 + 1)).sum()
+        sums += [plain, weighted]
+    host = torch.stack(sums).cpu().numpy()
+    return hashlib.sha256(host.tobytes() + str(trainer.step).encode()
+                          ).hexdigest()[:16]
+
+
+def tune_trainable(cfg):
+    """TPUTrainer.as_trainable over the dense flagship, one worker on
+    DEVICE, under a probe: each step reports its wall (the two trials step
+    at once), learning rate, the state's digest and the card's free bytes;
+    a checkpoint carries the digest of the state it saved, and the step
+    after a restore reports that digest beside the restored state's, the
+    blob's bytes and the seconds from the save to the restore."""
+    def init_fn(gen):
+        return init_params(gen, cfg, device=DEVICE)
+
+    def data_creator(rank, world, config):
+        rng = np.random.default_rng(SEED + 50 + rank)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TT_B, TRAIN_T + 1))).to(DEVICE)
+        while True:
+            yield {"tokens": tokens}
+
+    base = TPUTrainer.as_trainable(
+        init_fn, lambda p, b: loss_fn(p, b, cfg), data_creator,
+        num_workers=1, num_cpus_per_worker=1, device=DEVICE)
+
+    class Probed(base):
+        restored = None
+
+        def step(self):
+            dev_sync()
+            t0 = time.perf_counter()
+            result = super().step()
+            dev_sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            result.update(
+                wall_ms=wall, digest=state_digest(self.trainer),
+                lr=self.trainer.optimizer.param_groups[0]["lr"],
+                free=(torch.cuda.mem_get_info()[0] if DEVICE == "cuda"
+                      else 0))
+            if self.restored:
+                result.update(self.restored)
+                self.restored = None
+            return result
+
+        def save_checkpoint(self, checkpoint_dir):
+            path = super().save_checkpoint(checkpoint_dir)
+            with open(os.path.join(checkpoint_dir, "probe.json"), "w") as f:
+                json.dump({"digest": state_digest(self.trainer),
+                           "donor": self.trial_id, "at": time.time()}, f)
+            return path
+
+        def load_checkpoint(self, checkpoint_path):
+            super().load_checkpoint(checkpoint_path)
+            where = checkpoint_path if os.path.isdir(checkpoint_path) \
+                else os.path.dirname(checkpoint_path)
+            with open(os.path.join(where, "probe.json")) as f:
+                saved = json.load(f)
+            self.restored = {
+                "restored_digest": state_digest(self.trainer),
+                "saved_digest": saved["digest"], "donor": saved["donor"],
+                "save_to_restore_s": time.time() - saved["at"]}
+
+        def restore_from_object(self, obj):
+            super().restore_from_object(obj)
+            self.restored["blob_bytes"] = len(obj)
+
+    Probed.__name__ = "FlagshipTrainable"
+    return Probed
+
+
+def trial_rows(analysis) -> dict:
+    """Every result each trial logged (tune.run's JsonLogger), by trial."""
+    out = {}
+    for t in analysis.trials:
+        path = os.path.join(analysis.local_dir, f"trial_{t.trial_id}",
+                            "result.json")
+        with open(path) as f:
+            out[t.trial_id] = [json.loads(line) for line in f]
+    return out
+
+
+def lib_tune(cfg, card: str) -> dict:
+    """(a) tune.run of TPUTrainer.as_trainable under PBT on the card."""
+    from ray_tpu_torch import tune
+
+    L = cfg.n_layers
+    per_step = train_per_step(L)
+    log(f"phase 17 (a): tune.run(TPUTrainer.as_trainable(...)) under PBT, "
+        f"{len(TUNE_LRS)} trials at once (resources_per_trial "
+        f"{TUNE_RESOURCES}), each a TPUTrainer of 1 worker on the dense "
+        f"flagship, bf16, batch {TT_B} x seq {TRAIN_T}, AdamW at "
+        f"learning rates {TUNE_LRS}, perturbation_interval {TUNE_INTERVAL},"
+        f" {TUNE_ITERS} iterations of 1 step")
+    free0 = dev_free()
+    rt.init(num_cpus=8, num_gpus=1, object_store_memory=TUNE_STORE)
+    local_dir = tempfile.mkdtemp(prefix="ray_tpu_torch_tune_")
+    try:
+        sched = tune.PopulationBasedTraining(
+            time_attr="training_iteration", metric="loss", mode="min",
+            perturbation_interval=TUNE_INTERVAL,
+            hyperparam_mutations={"learning_rate": TUNE_MUTATIONS})
+        dev_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        analysis = tune.run(
+            tune_trainable(cfg),
+            config={"learning_rate": tune.grid_search(list(TUNE_LRS))},
+            resources_per_trial=TUNE_RESOURCES, scheduler=sched,
+            stop={"training_iteration": TUNE_ITERS}, local_dir=local_dir,
+            verbose=0)
+        run_s = time.perf_counter() - t0
+        total = read_counts()
+        spilled = rt.state.object_store_stats()["spilled_objects"]
+        gpu_back = rt.available_resources().get("GPU")
+        rows = trial_rows(analysis)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(local_dir, ignore_errors=True)
+    for t in analysis.trials:
+        log(f"  trial {t.trial_id} (lr {t.config['learning_rate']}, "
+            f"{t.status}): loss " + ", ".join(
+                f"{r['training_iteration']}: {r['loss']:.6f}"
+                for r in rows.get(t.trial_id, [])))
+    statuses = [t.status for t in analysis.trials]
+    if statuses != ["TERMINATED"] * len(TUNE_LRS):
+        raise AssertionError(f"(a) trial statuses {statuses}: "
+                             f"{[t.error_msg for t in analysis.trials]}")
+    if gpu_back != 1.0:
+        raise AssertionError(f"(a) GPU available after tune.run: {gpu_back}")
+    # The two trials step at once, and the counters are the process's: over
+    # tune.run they hold one rank's train step for each step the trials
+    # logged, and nothing else.
+    steps = [r for rs in rows.values() for r in rs]
+    by_iter = collections.Counter(r["training_iteration"] for r in steps)
+    want_total = {n: len(steps) * per_step.get(n, 0) for n in COUNTED}
+    if total != want_total:
+        raise AssertionError(f"(a) launches over tune.run {total}, expected "
+                             f"{len(steps)} steps' {want_total}")
+    # PBT exploited, and the recipient holds the donor's saved state.
+    exploits = [(tid, r) for tid, rs in rows.items() for r in rs
+                if "restored_digest" in r]
+    if sched.num_perturbations < 1 or not exploits:
+        raise AssertionError(f"(a) no exploit: {sched.num_perturbations} "
+                             f"perturbations, {len(exploits)} restores")
+    for tid, r in exploits:
+        donor_digests = {d["digest"] for d in rows.get(r["donor"], [])}
+        if r["restored_digest"] != r["saved_digest"]:
+            raise AssertionError(f"(a) trial {tid} restored state "
+                                 f"{r['restored_digest']}, the donor saved "
+                                 f"{r['saved_digest']}")
+        if r["saved_digest"] not in donor_digests:
+            raise AssertionError(f"(a) the donor {r['donor']} saved a state "
+                                 f"none of its steps reported")
+    trials = {t.trial_id: t for t in analysis.trials}
+    for tid, rs in rows.items():
+        if rs[-1]["lr"] != trials[tid].config["learning_rate"]:
+            raise AssertionError(f"(a) trial {tid} steps at {rs[-1]['lr']}, "
+                                 f"its config says "
+                                 f"{trials[tid].config['learning_rate']}")
+    best = min(analysis.trials, key=lambda t: t.last_result["loss"])
+    curve = [r["loss"] for r in rows[best.trial_id]]
+    if not (all(map(math.isfinite, curve)) and curve[-1] < curve[0]):
+        raise AssertionError(f"(a) the best trial's loss did not fall: "
+                             f"{curve}")
+    if spilled:
+        raise AssertionError(f"(a) {spilled} objects spilled: the store "
+                             f"({TUNE_STORE} bytes) did not hold the blob")
+    free1 = dev_free()
+    if free0 - free1 > LIB_MEM_MARGIN:
+        raise AssertionError(f"(a) the card holds {free0 - free1} bytes more"
+                             f" after tune.run (margin {LIB_MEM_MARGIN})")
+    blob = max(r["blob_bytes"] for _, r in exploits)
+    back = free1 - min(r["free"] for r in steps)
+    if DEVICE == "cuda" and back < blob:
+        raise AssertionError(f"(a) {back} bytes came back after tune.run, "
+                             f"less than one trial's state ({blob})")
+    walls = [r["wall_ms"] for r in steps]
+    log(f"  every trial TERMINATED; tune.run {run_s:.1f} s; {len(steps)} "
+        f"steps, trials stepping at each iteration "
+        f"{dict(sorted(by_iter.items()))}, two at once; launches over "
+        f"tune.run {total}: the steps' count times phase 5's per step "
+        f"{per_step}")
+    log(f"  {sched.num_perturbations} PBT perturbations; the best trial "
+        f"(lr {best.config['learning_rate']}) loss {curve}")
+    for tid, r in exploits:
+        log(f"  exploit: trial {tid} restored trial {r['donor']}'s state, "
+            f"digest {r['restored_digest']} on the card equal to the saved "
+            f"one and to the donor's step; blob {r['blob_bytes']:,} bytes "
+            f"({r['blob_bytes'] / 2**30:.3f} GiB), save to restore "
+            f"{r['save_to_restore_s']:.3f} s (the recipient's new trainer "
+            f"built in between); learning rate after it "
+            f"{rows[tid][-1]['lr']} [{card}]")
+    iter_ms = float(np.median(walls))
+    log(f"  a trial's iteration (1 step, the other trial stepping beside "
+        f"it): median {iter_ms:.3f} ms wall, "
+        f"{TT_B * TRAIN_T / iter_ms * 1e3:.1f} tokens/s; no object spilled "
+        f"(store {TUNE_STORE / 2**30:.0f} GiB); the card's free memory "
+        f"after tune.run {(free1 - free0) / 2**20:+.1f} MiB against before "
+        f"(margin {LIB_MEM_MARGIN / 2**20:.0f} MiB), "
+        f"{back / 2**20:.1f} MiB back against the trials' last step (one "
+        f"trial's state {blob / 2**20:.1f} MiB) [{card}]")
+    return {"launches": total, "steps": len(steps), "iter_ms": iter_ms}
+
+
+class PoolEngine:
+    """Phase 17 (b)'s actor: a GenerationEngine over the driver's flagship
+    parameters (SLOTS, MAX_SEQ), warmed as phase 3's, under a PathProbe
+    that counts its prefills and ticks."""
+
+    def __init__(self, params, cfg):
+        self.params = params
+        with torch.inference_mode():
+            self.eng = engine_mod.GenerationEngine(
+                params, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
+                device=DEVICE)
+            run_engine(self.eng, [([1, 2, 3], 4, {})])
+        self.probe = PathProbe(self.eng)
+
+    def param_ptrs(self) -> list:
+        return [t.data_ptr() for t in named_leaves(self.params).values()]
+
+    def cache_bytes(self) -> int:
+        return self.eng.cache_k.nbytes + self.eng.cache_v.nbytes
+
+    def serve(self, prompts) -> list:
+        with torch.inference_mode():
+            return run_engine(self.eng,
+                              [(p, NEW_TOKENS, {}) for p in prompts])
+
+    def probed(self) -> tuple:
+        return len(self.probe.prefills), len(self.probe.ticks)
+
+    def __ray_shutdown__(self):
+        """kill() frees the engine's cache: the probe holds it too."""
+        self.probe = None
+        self.eng = None
+
+
+def lib_pool(params, cfg, main: dict, refs: dict, card: str) -> dict:
+    """(b) util on the card: an ActorPool of GPU actors serving phase 3's
+    prompts, and multiprocessing.Pool.map of K1 over CUDA row blocks."""
+    from ray_tpu_torch.util import ActorPool
+    from ray_tpu_torch.util.multiprocessing import Pool
+
+    L = cfg.n_layers
+    log(f"phase 17 (b): util.ActorPool of {POOL_ACTORS} actors "
+        f"(num_gpus={POOL_GPUS}), each a GenerationEngine over the driver's "
+        f"flagship parameters ({SLOTS} slots, max_seq {MAX_SEQ}); "
+        f"util.multiprocessing.Pool.map of K1 over {POOL_ROWS // POOL_BLOCK} "
+        f"CUDA blocks of {POOL_BLOCK} rows")
+    prompts = serving_prompts(cfg.vocab_size)
+    free0 = dev_free()
+    rt.init(num_cpus=8, num_gpus=1)
+    try:
+        dev_sync()
+        mem0 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        pref = rt.put(params)
+        actors = [rt.remote(num_gpus=POOL_GPUS)(PoolEngine).remote(pref, cfg)
+                  for _ in range(POOL_ACTORS)]
+        ptrs = rt.get([a.param_ptrs.remote() for a in actors], timeout=600)
+        cache = sum(rt.get([a.cache_bytes.remote() for a in actors]))
+        held_gpu = rt.available_resources().get("GPU", 0.0)
+        want_ptrs = [t.data_ptr() for t in named_leaves(params).values()]
+        if any(p != want_ptrs for p in ptrs) or held_gpu != 0.0:
+            raise AssertionError(f"(b) the actors' parameters are not the "
+                                 f"driver's tensors, or the GPU left free is "
+                                 f"{held_gpu}")
+        pool = ActorPool(actors)
+        half = len(prompts) // 2
+        reset_counts()
+        t0 = time.perf_counter()
+        parts = list(pool.map(lambda a, ps: a.serve.remote(ps),
+                              [prompts[:half], prompts[half:]]))
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        outs = parts[0] + parts[1]
+        # The two actors serve at once, and the counters are the
+        # process's: 17 K1 for each prefill and tick and 8 K6 for each tick
+        # of either actor, and nothing else.
+        probed = rt.get([a.probed.remote() for a in actors])
+        per_tick = {"rms_norm": 1, "add_rms_norm": 2 * L,
+                    "decode_attention": L}
+        per_prefill = {"rms_norm": 1, "add_rms_norm": 2 * L}
+        for i, (_, ticks) in enumerate(probed):
+            if not ticks:
+                raise AssertionError(f"(b) actor {i} ran no tick")
+        n_pre = sum(pre for pre, _ in probed)
+        n_tick = sum(ticks for _, ticks in probed)
+        want = {"rms_norm": n_pre + n_tick,
+                "add_rms_norm": 2 * L * (n_pre + n_tick),
+                "decode_attention": L * n_tick}
+        if {n: c for n, c in launches.items() if c} != want:
+            raise AssertionError(f"(b) launches over pool.map {launches}, "
+                                 f"expected {want}")
+        flips = greedy_flips("(b) ActorPool", outs, main["outs"], prompts,
+                             refs["gaps"])
+        dev_sync()
+        mem_held = torch.cuda.memory_allocated() if DEVICE == "cuda" \
+            else 0
+        for a in actors:
+            rt.kill(a)
+        del pool, actors
+        gc.collect()
+        dev_sync()
+        freed = mem_held - (torch.cuda.memory_allocated()
+                            if DEVICE == "cuda" else 0)
+        if DEVICE == "cuda" and freed < cache:
+            raise AssertionError(f"(b) kill() freed {freed} bytes, less than "
+                                 f"the actors' KV caches ({cache})")
+        if rt.available_resources().get("GPU") != 1.0:
+            raise AssertionError("(b) the GPU did not come back after kill()")
+        log(f"  12 greedy requests in two halves through pool.map in "
+            f"{wall:.3f} s; the actors' parameters at the driver's data_ptr; "
+            f"{len(flips)} of {len(prompts)} requests differ from phase 3's "
+            f"tokens, each first at a near tie ({FLIP_ULPS} bf16 ulps); "
+            f"{n_pre} prefills and {n_tick} ticks over both actors "
+            f"({probed}), serving at once; launches {want}: {per_tick} a "
+            f"tick and {per_prefill} a prefill")
+        log(f"  kill() of both actors freed {freed / 2**20:.1f} MiB (their KV "
+            f"caches {cache / 2**20:.1f} MiB; device memory before the "
+            f"actors {mem0 / 2**20:.1f} MiB) [{card}]")
+
+        # Pool.map of K1 over CUDA row blocks.
+        x, w = rms_inputs(POOL_ROWS, torch.bfloat16, seed=SEED + 17)
+        x, w = x.to(DEVICE), w.to(DEVICE)
+        blocks = list(x.split(POOL_BLOCK))
+        dev_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        with Pool(POOL_ACTORS) as mp_pool:
+            got = mp_pool.map(functools.partial(k1_task, w=w), blocks)
+        dev_sync()
+        map_s = time.perf_counter() - t0
+        counts = {n: c for n, c in read_counts().items() if c}
+        if counts != {"rms_norm": len(blocks)}:
+            raise AssertionError(f"(b) Pool.map launches {counts}, expected "
+                                 f"{len(blocks)} K1")
+        for i, ((ptr, out), blk) in enumerate(zip(got, blocks)):
+            if ptr != blk.data_ptr() or out.device != blk.device:
+                raise AssertionError(f"(b) Pool.map block {i} was copied or "
+                                     f"left the card")
+        err = check_close(
+            f"(b) Pool.map: rms_norm [{POOL_ROWS}, {cfg.d_model}] bfloat16 "
+            f"in {len(blocks)} blocks", torch.cat([o for _, o in got]),
+            fused._rms_norm_ref(x, w, EPS), atol=2e-2, rtol=2e-2)
+        log(f"  Pool({POOL_ACTORS}).map: {len(blocks)} blocks, one K1 launch "
+            f"each on the block in place (no copy), max |err| vs the plain "
+            f"version {err:.3e} (atol = rtol = 2e-2), {map_s * 1e3:.3f} ms "
+            f"[{card}]")
+        del x, w, blocks, got
+    finally:
+        rt.shutdown()
+    free1 = dev_free()
+    if free0 - free1 > LIB_MEM_MARGIN:
+        raise AssertionError(f"(b) the card holds {free0 - free1} bytes more "
+                             f"after the pools (margin {LIB_MEM_MARGIN})")
+    log(f"  the card's free memory after the pools {(free1 - free0) / 2**20:+.1f}"
+        f" MiB against before (margin {LIB_MEM_MARGIN / 2**20:.0f} MiB)")
+    return {"launches": launches, "flips": len(flips)}
+
+
+def library_path(params, cfg, main: dict, refs: dict, card: str) -> dict:
+    """Phase 17: the tune and util libraries on the card."""
+    t_phase = time.perf_counter()
+    out = {"tune": lib_tune(cfg, card),
+           "pool": lib_pool(params, cfg, main, refs, card)}
+    log(f"  phase 17 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
 
 
 def main() -> int:
@@ -6952,8 +7460,9 @@ def main() -> int:
     operator_path(main, card)
     library = train_library_path(train, card)
     mesh_path(train, library, card)
-    tp_serve_path(params, cfg, main, paged, spec, card)
+    tp = tp_serve_path(params, cfg, main, paged, spec, card)
     data_plane_path(params, cfg, main, fast, card)
+    library_path(params, cfg, main, tp["one_process"], card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -2624,11 +2624,22 @@ class GcsServer:
     async def _heartbeat_checker(self):
         timeout_s = (self.config.heartbeat_interval_ms
                      * self.config.num_heartbeats_timeout) / 1000.0
+        interval = self.config.heartbeat_interval_ms / 1000.0
+        last_tick = time.monotonic()
         while True:
-            await asyncio.sleep(self.config.heartbeat_interval_ms / 1000.0)
+            await asyncio.sleep(interval)
+            now = time.monotonic()
+            late, last_tick = now - last_tick - interval, now
+            if late > interval:
+                # This loop was held up: the heartbeats that arrived
+                # meanwhile still sit unread in its sockets, so no node is
+                # blamed for that time (the reference declared every node
+                # dead at once after a GCS stall past the timeout).
+                for node in self.nodes.values():
+                    node.last_heartbeat += late
+                self.record_event("gcs_stall", seconds=round(late, 3))
             if not self._is_leader:
                 continue  # deposed: the new leader owns death detection
-            now = time.monotonic()
             for node in list(self.nodes.values()):
                 if node.alive and now - node.last_heartbeat > timeout_s:
                     node.alive = False

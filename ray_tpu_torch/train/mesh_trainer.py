@@ -50,6 +50,19 @@ def adamw(learning_rate: float) -> OptimizerFactory:
         weight_decay=1e-4)
 
 
+def load_optimizer_state(opt: torch.optim.Optimizer, state: dict) -> None:
+    """``opt.load_state_dict(state)`` that keeps ``opt``'s own
+    hyperparameters (learning rate, betas, decay): a checkpoint carries the
+    moments and steps, as the JAX package's optax state does, while the
+    learning rate stays the one the trainer was built with (a PBT exploit
+    restores the donor's state under the explored rate)."""
+    kept = [{k: v for k, v in g.items() if k != "params"}
+            for g in opt.param_groups]
+    opt.load_state_dict(state)
+    for group, hyper in zip(opt.param_groups, kept):
+        group.update(hyper)
+
+
 def host(leaf):
     """A tensor leaf detached and on the host; any other leaf as it is."""
     return leaf.detach().cpu() if isinstance(leaf, torch.Tensor) else leaf
@@ -233,5 +246,5 @@ class MeshTrainer:
             for own, new in zip(tree_leaves(self.state.params),
                                 tree_leaves(params)):
                 own.copy_(new)
-        self.state.opt_state.load_state_dict(opt_sd)
+        load_optimizer_state(self.state.opt_state, opt_sd)
         self.state.step = loaded.step

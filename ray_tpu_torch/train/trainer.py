@@ -33,7 +33,8 @@ from ..exceptions import (
     WorkerCrashedError,
 )
 from ..remote_function import remote
-from .mesh_trainer import OptimizerFactory, adamw, host
+from .mesh_trainer import (OptimizerFactory, adamw, host,
+                           load_optimizer_state)
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
@@ -226,7 +227,7 @@ class TPUTrainer:
             for own, new in zip(tree_leaves(self.params),
                                 tree_leaves(state["params"])):
                 own.copy_(new)
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(self.optimizer, state["optimizer"])
         self.step = state["step"]
         self._sync_params()
 
@@ -259,8 +260,9 @@ class TPUTrainer:
         """A tune Trainable wrapping this trainer (reference:
         torch_trainer.py:717 TorchTrainer.as_trainable). Tune config keys
         matching constructor kwargs (learning_rate, num_workers, seed, ...)
-        override; the rest flow into the trainer's user config. Needs the
-        port's ``tune`` package, which comes with ROADMAP.md's A8."""
+        override; the rest flow into the trainer's user config. A
+        ``device`` key reaches the trainer, and ``cleanup`` shuts the
+        trainer's workers down."""
         import os
 
         from ..tune.trainable import Trainable

@@ -15,6 +15,7 @@ there is none. Last, every frame kind of tests/test_wire_codec.py encodes
 to the same bytes in both packages."""
 
 import asyncio
+import time
 
 import numpy as np
 import pytest
@@ -276,6 +277,64 @@ def test_gcs_device_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgcs.GcsServer(TConfig())
     assert str(tgcs.GcsServer(TConfig(), device="cpu").device) == "cpu"
+
+
+# ------------------------------------------------------- death detection (C16)
+
+HB_MS, HB_MISSES = 20, 5       # a node is dead after 0.1 s without a beat
+
+
+def _deaths(pkg, beating, stall_s):
+    """Run a GCS's heartbeat checker for 0.4 s over nodes n0 and n1, with
+    the nodes in ``beating`` sending a heartbeat every 10 ms through the
+    GCS's own loop (as their frames would be read), and the loop blocked
+    for ``stall_s`` once, right after a beat. Returns the nodes declared
+    dead."""
+    cfg = (JConfig if pkg == JAX else TConfig)(
+        heartbeat_interval_ms=HB_MS, num_heartbeats_timeout=HB_MISSES)
+    gcs = (jgcs.GcsServer(cfg) if pkg == JAX
+           else tgcs.GcsServer(cfg, device="cpu"))
+    for i in range(2):
+        gcs.nodes[f"n{i}"] = _mod(pkg).NodeEntry(
+            f"n{i}", ("127.0.0.1", 1), {"CPU": 1.0}, i)
+    dead = []
+
+    async def on_death(node):
+        dead.append(node.node_id)
+
+    gcs._on_node_death = on_death
+
+    async def run():
+        checker = asyncio.ensure_future(gcs._heartbeat_checker())
+        loop = asyncio.get_running_loop()
+        end, stalled = loop.time() + 0.4, False
+        while loop.time() < end:
+            for nid in beating:
+                gcs.nodes[nid].last_heartbeat = time.monotonic()
+            if stall_s and not stalled and loop.time() > end - 0.3:
+                stalled = True
+                time.sleep(stall_s)
+            await asyncio.sleep(0.01)
+        checker.cancel()
+
+    asyncio.run(run())
+    return sorted(dead)
+
+
+def test_a_silent_node_is_declared_dead_as_in_jax():
+    """n1 sends nothing and the loop runs freely: both packages declare it,
+    and only it, dead."""
+    assert same(lambda pkg, _: _deaths(pkg, ("n0",), 0.0)) == ["n1"]
+
+
+def test_a_gcs_stall_blames_no_beating_node_c16():
+    """C16: the GCS's loop is blocked for 0.5 s, five times the timeout,
+    while both nodes keep beating. JAX's checker runs first when the loop
+    resumes, before the beats that waited, and declares both dead; the
+    port's takes the time it was held up off every node's silence."""
+    j, t = both(lambda pkg, _: _deaths(pkg, ("n0", "n1"), 0.5))
+    assert j == ["n0", "n1"]
+    assert t == []
 
 
 # ------------------------------------------------------------- S3, S4 and S5

@@ -2,8 +2,8 @@
 edge shapes the smoke run does not reach (scalar-load path, wide rows, odd
 group sizes, strided cache views, ragged tiles, T != S), gradients through
 the kernels against the same on the CPU, the engine on the card against
-the engine on the CPU, and the MoE FFN, MoE and vision train steps and the
-trainers on the card.
+the engine on the CPU, and the MoE FFN, MoE and vision train steps, the
+trainers and a tune trial of a trainer on the card.
 
 Every test needs an NVIDIA card and nvcc and skips without one. On a
 machine with a card (no JAX needed there):
@@ -1190,6 +1190,62 @@ def test_tpu_trainer_on_card_counts_each_rank_s_launches(dev):
             3 * 2 * n for n in (1, 2, 3, 1, 1, 1, 1))
         assert losses[-1] < losses[0]
         t.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_tune_runs_a_trainer_trial_on_the_card(dev, tmp_path):
+    """``tune.run`` of ``TPUTrainer.as_trainable`` with
+    ``resources_per_trial={"GPU": 0.5}``: the trial's actor holds half the
+    card (``num_gpus``), the trainer's parameters lie on the card, and each
+    iteration counts one rank's train-step launches (K1 plain, residual and
+    backward, K2, K3-K5) and no more."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.models import TransformerConfig, init_params, loss_fn
+    from ray_tpu_torch.train import TPUTrainer
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=1,
+                            n_heads=4, n_kv_heads=4, d_ff=512,
+                            max_seq_len=128)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 512, (2, 65))).to(dev)
+
+    def data(rank, world, config):
+        while True:
+            yield {"tokens": tokens}
+
+    base = TPUTrainer.as_trainable(
+        lambda g: init_params(g, cfg, device=dev),
+        lambda p, b: loss_fn(p, b, cfg), data, num_workers=1, device=dev)
+
+    class OnCard(base):
+        def step(self):
+            result = super().step()
+            result["on_card"] = all(
+                t.device.type == "cuda"
+                for t in tree_leaves(self.trainer.params))
+            result["gpu_free"] = ray_tpu_torch.available_resources().get(
+                "GPU", 0.0)
+            return result
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        before = _launch_counts()
+        analysis = tune.run(
+            OnCard, config={"learning_rate": 1e-3},
+            resources_per_trial={"CPU": 1, "GPU": 0.5},
+            stop={"training_iteration": 3}, local_dir=str(tmp_path),
+            verbose=0)
+        after = _launch_counts()
+        trial = analysis.trials[0]
+        assert trial.status == "TERMINATED"
+        assert trial.last_result["on_card"] is True
+        assert trial.last_result["gpu_free"] == 0.5
+        assert tuple(b - a for a, b in zip(before, after)) == tuple(
+            3 * n for n in (1, 2, 3, 1, 1, 1, 1))
+        assert ray_tpu_torch.available_resources()["GPU"] == 1.0
     finally:
         ray_tpu_torch.shutdown()
 

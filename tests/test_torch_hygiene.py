@@ -5,7 +5,11 @@ unless asked; the CUDA wrappers never fall back to their plain versions;
 and ``ray_tpu.serve`` do; the cluster runtime's and the operator tools'
 sources read only the port's own variables and name only the port's own
 shared-memory segments, spill directories and session, log and report
-files; no string in the port names a module of the JAX package."""
+files, and the library layer (tune, util, projects) its own results
+directory, named-actor registry and joblib backend; tune and util export
+what the JAX package's do and import no optional package (pandas, pyyaml,
+joblib) until a call needs it; no string in the port names a module of the
+JAX package."""
 
 import ast
 import os
@@ -77,16 +81,24 @@ _CLUSTER_SOURCES = sorted(
     for p in (ROOT / "ray_tpu_torch" / d).rglob("*")
     if p.suffix in (".py", ".cc", ".c")) + [ROOT / "ray_tpu_torch" /
                                              "monitor.py"]
+# The library layer: tune, util and projects.
+_LIBRARY_SOURCES = sorted(
+    p for d in ("tune", "util") for p in (ROOT / "ray_tpu_torch" / d).rglob(
+        "*.py")) + [ROOT / "ray_tpu_torch" / "projects.py"]
 # The JAX package's knob prefix, arena and completion-ring prefixes, spill
 # directory, and the CLI's session, head-log and report paths: a port
 # process that named one would read the other package's settings or
-# session, or sweep its segments, on a shared machine.
+# session, or sweep its segments, on a shared machine. The results
+# directory, the named-actor registry and the joblib backend of tune and
+# util: a port trial that named one would write into the other package's
+# results, or find its actors.
 _FOREIGN_NAMES = re.compile(
     r"RAY_TPU_(?!TORCH_)|rtps-|rtcr-|ray_tpu_spill|ray_tpu_session"
-    r"|ray_tpu_head_|ray_tpu_postmortem|ray_tpu_profile_|ray_tpu_timeline")
+    r"|ray_tpu_head_|ray_tpu_postmortem|ray_tpu_profile_|ray_tpu_timeline"
+    r"|ray_tpu_results|__ray_tpu_named_actor_registry__|\"ray_tpu\"")
 
 
-@pytest.mark.parametrize("path", _CLUSTER_SOURCES,
+@pytest.mark.parametrize("path", _CLUSTER_SOURCES + _LIBRARY_SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_cluster_sources_name_only_the_ports_own_resources(path):
     hits = [(i, line.strip()) for i, line in
@@ -649,3 +661,64 @@ def test_models_train_and_parallel_export_what_the_jax_packages_do(name):
         elif not hasattr(tmod, n):
             missing.add(n)
     assert missing == _AWAITING_A7B[name], sorted(missing)
+
+
+# The library layer, one file to one file with the JAX package's.
+_A81_FILES = sorted(
+    str(p.relative_to(ROOT / "ray_tpu"))
+    for d in ("tune", "util") for p in (ROOT / "ray_tpu" / d).rglob("*.py")
+) + ["projects.py"]
+
+
+def test_library_layer_has_every_file_of_the_jax_packages():
+    assert len(_A81_FILES) == 26
+    missing = [f for f in _A81_FILES
+               if not (ROOT / "ray_tpu_torch" / f).is_file()]
+    assert missing == []
+    assert set(_LIBRARY_SOURCES) == {ROOT / "ray_tpu_torch" / f
+                                     for f in _A81_FILES}
+
+
+@pytest.mark.parametrize("name", ["ray_tpu.tune", "ray_tpu.util"])
+def test_tune_and_util_export_what_the_jax_packages_do(name):
+    """Every public name of the JAX package's tune and util packages is
+    the port's too, and each of their submodules has a file in the port."""
+    import importlib
+    import types
+
+    jmod = importlib.import_module(name)
+    tmod = importlib.import_module(name.replace("ray_tpu", "ray_tpu_torch",
+                                                1))
+    tdir = ROOT / "ray_tpu_torch" / name.split(".")[1]
+    missing = set()
+    for n in _public(jmod):
+        val = getattr(jmod, n)
+        if isinstance(val, types.ModuleType):
+            if not ((tdir / f"{n}.py").is_file() or (tdir / n).is_dir()):
+                missing.add(n)
+        elif not hasattr(tmod, n):
+            missing.add(n)
+    assert missing == set(), sorted(missing)
+    if hasattr(jmod, "__all__"):
+        assert sorted(tmod.__all__) == sorted(jmod.__all__)
+
+
+_LIBRARY_PROBE = """
+import sys
+import ray_tpu_torch.tune, ray_tpu_torch.util, ray_tpu_torch.projects
+import ray_tpu_torch.util.multiprocessing, ray_tpu_torch.util.joblib
+print("LOADED", sorted(m for m in ("pandas", "yaml", "joblib")
+                       if m in sys.modules))
+"""
+
+
+def test_importing_tune_util_and_projects_loads_no_optional_package():
+    """pandas, pyyaml and joblib are imported only by the calls that need
+    them (``ExperimentAnalysis.dataframe``, ``load_project``,
+    ``register_ray``): the machine with the card has none of them."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _LIBRARY_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout

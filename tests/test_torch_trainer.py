@@ -5,8 +5,9 @@ fresh local runtime each) on the same numpy-seeded batches; 5 steps of each
 trainer against JAX's (optax.adamw at weight decay 1e-4) with the
 parameters held within 1e-5; the twin of its sharded dp=8 test on an
 8-rank gloo world, and the refusals of what is not a mesh; the launch
-counters' atomic increments under threads; and the twin of
-tests/test_moe_train.py::test_worker_logs_reach_driver."""
+counters' atomic increments under threads; and the twins of
+tests/test_moe_train.py::test_tpu_trainer_as_trainable (each trial's loss
+at each iteration within 1e-5 of JAX's) and ::test_worker_logs_reach_driver."""
 
 import threading
 import time
@@ -210,6 +211,86 @@ def test_tpu_trainer_matches_jax_over_five_steps():
                                    err_msg=name)
 
 
+_AS_TRAINABLE_W0 = np.array([0.3, -0.2, 0.1, 0.4], np.float32)
+_AS_TRAINABLE_W = np.array([1., -2., 3., 0.5], np.float32)
+
+
+def _as_trainable_losses(rt, tmp_path):
+    """tests/test_moe_train.py::test_tpu_trainer_as_trainable's program
+    through ``rt``'s tune and TPUTrainer, from a fixed numpy ``w``: each
+    trial's ``loss`` at each of its 4 iterations, trials by learning
+    rate."""
+    import json
+    import os
+
+    rt.init(num_cpus=8)
+    if rt is ray_tpu:
+        from ray_tpu import tune
+
+        def init_fn(rng):
+            return {"w": jnp.asarray(_AS_TRAINABLE_W0)}
+
+        def loss_fn(params, batch):
+            return jnp.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+        trainable = JTPUTrainer.as_trainable(
+            init_fn, loss_fn, _as_trainable_data, num_workers=2)
+    else:
+        from ray_tpu_torch import tune
+
+        def init_fn(gen):
+            return {"w": torch.tensor(_AS_TRAINABLE_W0, device=gen.device)}
+
+        def loss_fn(params, batch):
+            return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+        trainable = TTPUTrainer.as_trainable(
+            init_fn, loss_fn, _as_trainable_data, num_workers=2,
+            device="cpu")
+    analysis = tune.run(
+        trainable,
+        config={"learning_rate": tune.grid_search([0.05, 0.1])},
+        stop={"training_iteration": 4}, local_dir=str(tmp_path),
+        verbose=0)
+    assert len(analysis.trials) == 2
+    assert all(t.status == "TERMINATED" for t in analysis.trials)
+    out = {}
+    for t in analysis.trials:
+        path = os.path.join(analysis.local_dir, f"trial_{t.trial_id}",
+                            "result.json")
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+        assert [r["training_iteration"] for r in rows] == [1, 2, 3, 4]
+        out[t.config["learning_rate"]] = [r["loss"] for r in rows]
+    return out
+
+
+def _as_trainable_data(rank, world, config):
+    rng = np.random.RandomState(rank)
+    while True:
+        x = rng.randn(16, 4).astype(np.float32)
+        yield {"x": x, "y": x @ _AS_TRAINABLE_W}
+
+
+def test_tpu_trainer_as_trainable_matches_jax(tmp_path):
+    """Twin of tests/test_moe_train.py::test_tpu_trainer_as_trainable: 2
+    trials (learning rates 0.05 and 0.1) of a 2-worker TPUTrainer under
+    each package's ``tune.run``, 4 iterations each, from the same numpy
+    ``w``; every trial's loss at every iteration within 1e-5 of JAX's, as
+    test_tpu_trainer_matches_jax_over_five_steps holds the trainer. The
+    port's trainable shuts its trainer's workers down at the end."""
+    jax_losses = _as_trainable_losses(ray_tpu, tmp_path / "jax")
+    ray_tpu.shutdown()
+    port_losses = _as_trainable_losses(ray_tpu_torch, tmp_path / "port")
+    assert set(port_losses) == set(jax_losses) == {0.05, 0.1}
+    for lr, losses in jax_losses.items():
+        assert np.isfinite(losses).all()
+        np.testing.assert_allclose(port_losses[lr], losses, atol=1e-5,
+                                   rtol=1e-5, err_msg=str(lr))
+    # Every trial's trainer and its workers are gone with the trials.
+    assert ray_tpu_torch.available_resources()["CPU"] == 8
+
+
 def test_tpu_trainer_workers_hold_their_own_leaves():
     """The driver's parameters come back without grad and with no
     ``.grad`` after a step; the init_fn runs once at the driver and once
@@ -232,6 +313,46 @@ def test_tpu_trainer_workers_hold_their_own_leaves():
         assert t.optimizer.param_groups[0]["weight_decay"] == 1e-4
     finally:
         t.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["tpu_trainer", "mesh_trainer"])
+def test_restore_keeps_the_trainers_learning_rate_as_jax(kind, tmp_path):
+    """A checkpoint taken at learning rate 0.1 restored into a trainer
+    built at 0.01 (a PBT exploit's explored rate) steps at 0.01 with the
+    saved moments, as JAX's trainers do (optax's state holds no rate): the
+    parameters after 2 more steps within 1e-5 of JAX's."""
+    after = []
+    for rt in PKGS:
+        path = str(tmp_path / f"{rt.__name__}.pkl")
+        if kind == "tpu_trainer":
+            t = _tpu_trainer(rt)
+            t.train(num_steps=3)
+            t.save(path)
+            t.shutdown()
+            t2 = _tpu_trainer(rt, learning_rate=0.01)
+            t2.restore(path)
+            t2.train(num_steps=2)
+            after.append({k: _np(v).copy() for k, v in t2.params.items()})
+            t2.shutdown()
+        else:
+            t = _mesh_trainer(rt)
+            t.train(_data(rt, 5), num_steps=3)
+            t.save(path)
+            if rt is ray_tpu:
+                t2 = JMeshTrainer(_jinit, _jloss, learning_rate=0.01)
+            else:
+                t2 = TMeshTrainer(_tinit, _tloss, learning_rate=0.01,
+                                  device="cpu")
+                assert t2.state.opt_state.param_groups[0]["lr"] == 0.01
+            t2.restore(path)
+            t2.train(_data(rt, 6), num_steps=2)
+            after.append({k: _np(v).copy()
+                          for k, v in t2.state.params.items()})
+        rt.shutdown()
+    jp, tp = after
+    for name in jp:
+        np.testing.assert_allclose(tp[name], jp[name], atol=1e-5,
+                                   err_msg=name)
 
 
 # ------------------------------------------------------------ MeshTrainer
