@@ -308,7 +308,25 @@ it fails:
    frees both KV caches and the GPU; then util.multiprocessing.Pool(2).map
    of K1 over 8 row blocks of a CUDA tensor: one launch a block, on the
    block in place, against the plain version; the card's free memory back
-   after both pools.
+   after both pools;
+18. streaming and the distributed arrays (ray_tpu_torch.streaming,
+   ray_tpu_torch.experimental) on a fresh init(num_gpus=1): (a)
+   experimental.array at 4096 x 4096 f32 (8 x 8 blocks of 512): random
+   x2, dot, add, subtract, transpose, eye and dot(eye, a), every block a
+   CUDA tensor on cuda:0; dot within experimental.array._dot_bound (2
+   gamma_K |A| @ |B|, derived from the numerics) of one torch.matmul of the
+   assembled operands, the rest exact; the 64 output-block tasks' wall and
+   the matmul's device time; (b) a DataStream of 64 CUDA tensors [512,
+   1024] bf16 through map(rms_norm, K1, parallelism 2), key_by(index mod
+   4), reduce(float64 elementwise sum) and a sink, batches of 4 on the
+   native ring: the four sums bit-equal to the same K1 calls and sums run
+   eagerly (exact sums, checked, so arrival order cannot move a bit), K1
+   counted exactly 64 in the stream and 64 eager, all 12 channels native,
+   records/s and GB/s through the rings, and one CUDA batch's pickle and
+   unpickle; (c) (b) again with a sink sleeping 5 ms a call, the same sums;
+   after each ctx.shutdown() the card's allocated memory back at its level
+   before the job; internal_kv and set_resource as the reference's tests
+   run them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -333,7 +351,9 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
+import weakref
 
 import numpy as np
 import torch
@@ -7411,6 +7431,405 @@ def library_path(params, cfg, main: dict, refs: dict, card: str) -> dict:
     return out
 
 
+# -------------------------------- phase 18: streaming and distributed arrays
+
+ARR_N = 4096                     # (a) 8 x 8 blocks of 512: 64 MiB an array
+STREAM_ITEMS, STREAM_ROWS = 64, 512   # (b) [512, 1024] bf16: 1 MiB an item
+STREAM_BATCH = 4                 # 4 MiB batches in the 8 MiB ring
+STREAM_KEYS = 4
+STREAM_SLEEP_S = 0.005           # (c) the slow sink, a call
+
+
+def arrays_path(card: str) -> dict:
+    """(a) experimental.array at 4096 x 4096 f32 on the card: every block
+    a CUDA tensor, dot within _dot_bound of one torch.matmul, the
+    elementwise ops, transpose and dot(eye, a) exact."""
+    from ray_tpu_torch.experimental import array as ra
+
+    n = ARR_N
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        "cpu")
+    log(f"phase 18 (a): experimental.array at {n} x {n} float32, blocks "
+        f"of {ra.BLOCK_SIZE} ({n // ra.BLOCK_SIZE} x {n // ra.BLOCK_SIZE}), "
+        f"device={DEVICE!r}")
+    a = ra.random((n, n), seed=1, device=DEVICE)
+    b = ra.random((n, n), seed=2, device=DEVICE)
+    A, B = a.assemble(), b.assemble()
+    dev_sync()
+    t0 = time.perf_counter()
+    c = ra.dot(a, b)
+    rt.get(list(c.blocks.flat))
+    dev_sync()
+    dot_wall = time.perf_counter() - t0
+    ident = ra.eye(n, device=DEVICE)
+    arrays = {"a": a, "b": b, "dot": c, "add": ra.add(a, b),
+              "subtract": ra.subtract(a, b), "transpose": ra.transpose(a),
+              "eye": ident, "eye_a": ra.dot(ident, a)}
+    for name, arr in arrays.items():
+        for ref in arr.blocks.flat:
+            blk = rt.get(ref)
+            if not isinstance(blk, torch.Tensor) or blk.device != dev \
+                    or blk.dtype != torch.float32:
+                raise AssertionError(f"(a) a block of {name} is "
+                                     f"{type(blk).__name__} on "
+                                     f"{getattr(blk, 'device', None)}")
+    exact = {"add": A + B, "subtract": A - B, "transpose": A.t(),
+             "eye": torch.eye(n, device=A.device), "eye_a": A}
+    for name, want in exact.items():
+        got = arrays[name].assemble()
+        if got.device != A.device or not torch.equal(got, want):
+            raise AssertionError(f"(a) {name} differs from its exact answer")
+    C = c.assemble()
+    one = torch.matmul(A, B)
+    gap = (C.double() - one.double()).abs()
+    bnd = ra._dot_bound(A, B)
+    ratio = torch.where(gap > 0, gap / bnd, 0.0).max().item()
+    if not torch.isfinite(C).all() or ratio > 1.0:
+        raise AssertionError(f"(a) dot is {ratio:.3f} times its bound away "
+                             f"from one torch.matmul")
+    mm_ms = device_ms("torch.matmul", torch.matmul, [(A, B)], 5) \
+        if DEVICE == "cuda" else float("nan")
+    log(f"  random x2, dot, add, subtract, transpose, eye and dot(eye, a): "
+        f"every block a float32 tensor on {dev}; add, subtract, transpose "
+        f"and dot(eye, a) exact; dot against one torch.matmul: max |gap| "
+        f"{gap.max().item():.3e}, at most {ratio:.4f} of the bound "
+        f"2 gamma_K (|A| @ |B|), K {n}")
+    log(f"  dot's {c.blocks.size} output-block tasks: {dot_wall * 1e3:.3f} "
+        f"ms wall; one torch.matmul [{n}, {n}] x [{n}, {n}] f32 (TF32 off): "
+        f"{mm_ms:.3f} ms device time [{card}]")
+    del arrays, a, b, c, ident, A, B, C, one, gap, bnd, exact
+    return {"dot_wall_ms": dot_wall * 1e3, "matmul_ms": mm_ms,
+            "dot_ratio": ratio}
+
+
+def stream_k1(item, w):
+    i, x = item
+    return i, fused.rms_norm(x, w, EPS)
+
+
+def stream_key(item):
+    # A Python int: keyed routing hashes repr(key), and a tensor's repr
+    # carries its device and formatting.
+    return item[0] % STREAM_KEYS
+
+
+def stream_sum(acc, item):
+    # float64: every partial sum of these bf16 terms is exact (checked by
+    # sums_are_exact), so the order in which the two key_by instances'
+    # batches arrive cannot change a bit.
+    return acc[0], acc[1].double() + item[1].double()
+
+
+def slow_sink(item):
+    time.sleep(STREAM_SLEEP_S)
+
+
+def sums_are_exact(terms) -> bool:
+    """Whether every float64 sum, elementwise, of ``terms`` (bf16 tensors)
+    is exact in any order: a bf16 value is an 8-bit integer times
+    2^(e-8), so each partial sum of n terms is a multiple of 2^(e_min-8)
+    below n * 2^e_max, which float64 holds while e_max - e_min + 8 +
+    ceil(log2 n) <= 53."""
+    stack = torch.stack(list(terms)).double()
+    nz = stack != 0
+    e = torch.frexp(stack).exponent
+    hi = torch.where(nz, e, -(1 << 20)).amax(0)
+    lo = torch.where(nz, e, 1 << 20).amin(0)
+    span = (hi - lo)[nz.any(0)]
+    need = 8 + math.ceil(math.log2(len(stack)))
+    return span.numel() == 0 or int(span.max()) + need <= 53
+
+
+class RingMeter:
+    """Counts the bytes, writes and longest wait of every native-ring write
+    of the streaming workers (_OutChannel._write_with_backpressure), while
+    installed."""
+
+    def __init__(self):
+        from ray_tpu_torch.streaming import worker as stream_worker
+
+        self.cls = stream_worker._OutChannel
+        self.lock = threading.Lock()
+        self.bytes = self.writes = 0
+        self.max_wait_s = 0.0
+
+    def __enter__(self):
+        orig = self.orig = self.cls._write_with_backpressure
+        meter = self
+
+        def write(ch, payload):
+            t0 = time.perf_counter()
+            orig(ch, payload)
+            waited = time.perf_counter() - t0
+            with meter.lock:
+                meter.bytes += len(payload)
+                meter.writes += 1
+                meter.max_wait_s = max(meter.max_wait_s, waited)
+
+        self.cls._write_with_backpressure = write
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._write_with_backpressure = self.orig
+
+
+def stream_job(xs, w, sink=None) -> tuple:
+    """(b)'s job: (index, x) items through K1 in two map instances, keyed by
+    index mod 4 over two key_by instances, summed over two reduce
+    instances, into one sink. Returns the context (not shut down), the
+    sink's results, the wall of submit(), the ring's meter and every
+    edge's transport."""
+    from ray_tpu_torch.streaming import StreamingContext
+
+    ctx = StreamingContext(batch_size=STREAM_BATCH)
+    (ctx.from_collection(list(enumerate(xs)))
+        .map(functools.partial(stream_k1, w=w), parallelism=2)
+        .key_by(stream_key, parallelism=2)
+        .reduce(stream_sum, parallelism=2)
+        .sink(sink))
+    with RingMeter() as meter:
+        t0 = time.perf_counter()
+        results = ctx.submit()
+        dev_sync()
+        wall = time.perf_counter() - t0
+    transports = {k: v for ws in ctx._workers.values() for wk in ws
+                  for k, v in rt.get(wk.transports.remote()).items()}
+    return ctx, results, wall, meter, transports
+
+
+def check_stream(what: str, ctx, results, transports, eager: dict) -> None:
+    # source -> map 1 x 2, map -> key_by 2 x 2, key_by -> reduce 2 x 2,
+    # reduce -> sink 2 x 1: 12 channels.
+    if len(transports) != 12 or set(transports.values()) != {"native"}:
+        raise AssertionError(f"{what}: not every edge took the native ring: "
+                             f"{transports}")
+    if sorted(k for k, _ in results) != list(range(STREAM_KEYS)):
+        raise AssertionError(f"{what}: the sink holds keys "
+                             f"{[k for k, _ in results]}")
+    for key, (_, total) in results:
+        if total.device != eager[key].device \
+                or not torch.equal(total, eager[key]):
+            raise AssertionError(f"{what}: key {key}'s sum differs from the "
+                                 f"eager loop's")
+    stats = ctx.stats()
+    n = STREAM_ITEMS
+    want = {"source_0": (n, n), "map_1": (n, n), "key_by_2": (n, n),
+            "reduce_3": (n, STREAM_KEYS), "sink_4": (STREAM_KEYS, 0)}
+    got = {k: (v["records_in"], v["records_out"]) for k, v in stats.items()}
+    if got != want:
+        raise AssertionError(f"{what}: stats {got}, expected {want}")
+
+
+def ring_cost(xs, card: str) -> str:
+    """What one CUDA batch of (b) costs through the ring's pickle: the
+    sender's dumps (a copy to the host) and the reader's loads (a copy
+    back to the card), each on this thread."""
+    import pickle
+
+    batch = list(enumerate(xs[:STREAM_BATCH]))
+    payload = pickle.dumps(batch, protocol=5)
+    pickle.loads(payload)
+    reps = 5
+    dev_sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pickle.dumps(batch, protocol=5)
+    dump_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        back = pickle.loads(payload)
+    dev_sync()
+    load_s = (time.perf_counter() - t0) / reps
+    if back[0][1].device != xs[0].device or not torch.equal(back[0][1],
+                                                            xs[0]):
+        raise AssertionError("(b) a batch did not come back from its "
+                             "pickle on the card with its bits")
+    nbytes = sum(x.nbytes for x in xs[:STREAM_BATCH])
+    return (f"one batch of {STREAM_BATCH} CUDA items ({nbytes / 2**20:.1f} "
+            f"MiB of tensor, {len(payload) / 2**20:.3f} MiB pickled): "
+            f"dumps {dump_s * 1e3:.3f} ms ({nbytes / dump_s / 1e9:.2f} GB/s, "
+            f"device to host), loads {load_s * 1e3:.3f} ms "
+            f"({nbytes / load_s / 1e9:.2f} GB/s, host to device) [{card}]")
+
+
+def holders(obj, depth: int = 5) -> list:
+    """What keeps ``obj`` alive, up to ``depth`` referrers up: each frame by
+    its function and line, each container by its type."""
+    me = sys._getframe()
+    seen = {id(me)}
+    frontier, found = [obj], []
+    for level in range(depth):
+        seen.add(id(frontier))
+        nxt: list = []
+        seen.add(id(nxt))
+        for o in frontier:
+            for r in gc.get_referrers(o):
+                if id(r) in seen:
+                    continue
+                seen.add(id(r))
+                if isinstance(r, types.FrameType):
+                    found.append(f"{level}: frame {r.f_code.co_name}:"
+                                 f"{r.f_lineno}")
+                elif type(r).__module__ != "builtins" or isinstance(
+                        r, (dict, list, tuple, types.CellType)):
+                    found.append(f"{level}: {type(r).__name__}")
+                    nxt.append(r)
+        frontier = nxt
+    return found
+
+
+def stream_teardown(what: str, ctx, mem0: int, sums: list) -> int:
+    """ctx.shutdown() must give the card's memory back to mem0 (the level
+    before the job) and free the sink's sums (``sums``: weak references to
+    them); on a failure, what still holds them."""
+    ctx.shutdown()
+    gc.collect()
+    dev_sync()
+    mem1 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    live = [t for t in (r() for r in sums) if t is not None]
+    if mem1 != mem0 or live:
+        n_live = len(live)
+        why = (f"{n_live} of the sink's {len(sums)} sums alive, the first"
+               f" held by {holders(live.pop())}" if live else
+               f"none of the sink's {len(sums)} sums alive")
+        del live
+        print(f"  {what}: {why}", file=sys.stderr, flush=True)
+        raise AssertionError(f"{what}: the card holds {mem1 - mem0} bytes "
+                             f"more after ctx.shutdown() than before the "
+                             f"job, or a sum of the sink outlived it")
+    return mem1
+
+
+def stream_path(card: str) -> dict:
+    """(b) and (c): DataStream jobs carrying CUDA tensors through K1."""
+    import ray_tpu_torch.experimental as rx
+
+    d = FLAGSHIP["d_model"]
+    log(f"phase 18 (b): a DataStream of {STREAM_ITEMS} CUDA tensors "
+        f"[{STREAM_ROWS}, {d}] bf16 (1 MiB each): map(rms_norm, K1, "
+        f"parallelism=2) -> key_by(index % {STREAM_KEYS}, parallelism=2) -> "
+        f"reduce(float64 elementwise sum, parallelism=2) -> sink, batches "
+        f"of {STREAM_BATCH} on the native ring")
+    g = cuda_gen(SEED + 18) if DEVICE == "cuda" else \
+        torch.Generator().manual_seed(SEED + 18)
+    xs = [torch.randn(STREAM_ROWS, d, generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(STREAM_ITEMS)]
+    w = (1.0 + 0.1 * torch.randn(d, generator=g, device=DEVICE)).to(
+        torch.bfloat16)
+    cost = ring_cost(xs, card)
+    reset_counts()
+    ys = [fused.rms_norm(x, w, EPS) for x in xs]
+    if not all(sums_are_exact(ys[k::STREAM_KEYS])
+               for k in range(STREAM_KEYS)):
+        raise AssertionError("(b) a float64 sum of these K1 outputs would "
+                             "round: the sums would depend on arrival order")
+    eager: dict = {}
+    for i, y in enumerate(ys):
+        k = i % STREAM_KEYS
+        eager[k] = y.double() if k not in eager else eager[k] + y.double()
+    del ys
+    dev_sync()
+    mem0 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    ctx, results, wall, meter, transports = stream_job(xs, w)
+    launches = {n: c for n, c in read_counts().items() if c}
+    if launches != {"rms_norm": 2 * STREAM_ITEMS}:
+        raise AssertionError(f"(b) launches {launches}: expected "
+                             f"{STREAM_ITEMS} K1 in the stream and "
+                             f"{STREAM_ITEMS} in the eager loop")
+    check_stream("(b)", ctx, results, transports, eager)
+    sums = [weakref.ref(total) for _, (_, total) in results]
+    del results
+    stream_teardown("(b)", ctx, mem0, sums)
+    log(f"  the sink's {STREAM_KEYS} sums bit-equal to the eager loop's; "
+        f"rms_norm.launches +{2 * STREAM_ITEMS} ({STREAM_ITEMS} in the "
+        f"stream, {STREAM_ITEMS} eager); all {len(transports)} channels on "
+        f"the native ring; keys are Python ints (a tensor key's repr "
+        f"carries its device)")
+    log(f"  {STREAM_ITEMS} records in {wall * 1e3:.3f} ms: "
+        f"{STREAM_ITEMS / wall:.1f} records/s; {meter.writes} ring writes "
+        f"of {meter.bytes / 2**20:.1f} MiB: {meter.bytes / wall / 1e9:.3f} "
+        f"GB/s through the rings; longest write {meter.max_wait_s * 1e3:.3f}"
+        f" ms [{card}]")
+    log(f"  {cost}")
+
+    log(f"phase 18 (c): (b) again with a sink that sleeps "
+        f"{STREAM_SLEEP_S * 1e3:.0f} ms a call, then internal_kv and "
+        f"set_resource on this runtime")
+    reset_counts()
+    ctx, results, wall_c, meter_c, transports = stream_job(xs, w, slow_sink)
+    check_stream("(c)", ctx, results, transports, eager)
+    if read_counts()["rms_norm"] != STREAM_ITEMS:
+        raise AssertionError("(c) the stream's K1 launches are not "
+                             f"{STREAM_ITEMS}")
+    sums = [weakref.ref(total) for _, (_, total) in results]
+    del results
+    stream_teardown("(c)", ctx, mem0, sums)
+    log(f"  completed with the same sums in {wall_c * 1e3:.3f} ms (against "
+        f"{wall * 1e3:.3f} ms), longest ring write "
+        f"{meter_c.max_wait_s * 1e3:.3f} ms; the card's allocated memory back"
+        f" at {mem0 / 2**20:.1f} MiB after each ctx.shutdown() [{card}]")
+
+    # The reference's internal kv and dynamic-resource programs.
+    if rx._internal_kv_get(b"k") is not None \
+            or rx._internal_kv_put(b"k", b"v1") is not False \
+            or rx._internal_kv_put(b"k", b"v2", overwrite=False) is not True \
+            or rx._internal_kv_get(b"k") != b"v1" \
+            or rx._internal_kv_put(b"k", b"v3") is not True \
+            or rx._internal_kv_get(b"k") != b"v3" \
+            or not rx._internal_kv_exists(b"k"):
+        raise AssertionError("(c) internal_kv put/get gave the wrong answer")
+    rx._internal_kv_del(b"k")
+    if rx._internal_kv_exists(b"k"):
+        raise AssertionError("(c) internal_kv del left the key")
+    for builtin in ("CPU", "GPU"):
+        try:
+            rx.set_resource(builtin, 4)
+        except ValueError:
+            continue
+        raise AssertionError(f"(c) set_resource({builtin!r}) did not raise")
+    rx.set_resource("widget", 2)
+    if rt.cluster_resources().get("widget") != 2.0:
+        raise AssertionError("(c) set_resource did not add the resource")
+    if rt.get(rt.remote(resources={"widget": 1})(noop).remote(),
+              timeout=60) is not None:
+        raise AssertionError("(c) a task demanding the resource failed")
+    rx.set_resource("widget", 0)
+    if "widget" in rt.cluster_resources():
+        raise AssertionError("(c) set_resource(0) left the resource")
+    log("  internal_kv put/get/exists/del and set_resource (CPU and GPU "
+        "refused, a custom resource added, used by a task, deleted) as the "
+        "reference's tests run them")
+    del xs, w, eager
+    return {"records_per_s": STREAM_ITEMS / wall,
+            "ring_gbps": meter.bytes / wall / 1e9, "wall_ms": wall * 1e3,
+            "slow_wall_ms": wall_c * 1e3}
+
+
+def streaming_path(card: str) -> dict:
+    """Phase 18: streaming and distributed arrays on the card, on a fresh
+    local runtime."""
+    t_phase = time.perf_counter()
+    free0 = dev_free()
+    alloc0 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    rt.init(num_cpus=8, num_gpus=1)
+    try:
+        out = {"arrays": arrays_path(card)}
+        free_a = dev_free()
+        log(f"  after (a), the card's free memory (device-wide) "
+            f"{(free_a - free0) / 2**20:+.1f} MiB against before, with "
+            f"{threading.active_count()} threads in this process [{card}]")
+        out["stream"] = stream_path(card)
+    finally:
+        rt.shutdown()
+    free1 = dev_free()
+    alloc1 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    log(f"  after the phase, the card's free memory (device-wide) "
+        f"{(free1 - free0) / 2**20:+.1f} MiB and this process's allocated "
+        f"memory {(alloc1 - alloc0) / 2**20:+.1f} MiB against before; phase "
+        f"18 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -7463,6 +7882,7 @@ def main() -> int:
     tp = tp_serve_path(params, cfg, main, paged, spec, card)
     data_plane_path(params, cfg, main, fast, card)
     library_path(params, cfg, main, tp["one_process"], card)
+    streaming_path(card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -143,7 +143,23 @@ class FlightRecorder:
             self.sample_seconds += time.perf_counter() - t0
 
     def _sample_once(self, own_ident: int) -> None:
+        # Reduce every stack to its code objects and drop the frames
+        # before the slow part: a frame held here keeps its function's
+        # locals alive after the function returns, and each procfs read
+        # below gives up the GIL, so under load one sample held a
+        # caller's freed objects (tensors on the card among them) for
+        # tens of milliseconds.
         frames = sys._current_frames()
+        stacks = []
+        for ident, frame in frames.items():
+            if ident == own_ident:
+                continue
+            codes = []
+            while frame is not None and len(codes) < MAX_DEPTH:
+                codes.append(frame.f_code)
+                frame = frame.f_back
+            stacks.append((ident, tuple(codes)))
+        del frames, frame
         self.samples += 1
         code_cache = self._code_cache
         stack_cache = self._stack_cache
@@ -162,20 +178,11 @@ class FlightRecorder:
             if self._cpu_prev_t else 0.0
         folded = []
         cpu_seen: Dict[int, int] = {}
-        for ident, frame in frames.items():
-            if ident == own_ident:
-                continue
-            codes = []
-            depth = 0
-            while frame is not None and depth < MAX_DEPTH:
-                codes.append(frame.f_code)
-                frame = frame.f_back
-                depth += 1
-            codes_t = tuple(codes)
+        for ident, codes_t in stacks:
             key = stack_cache.get(codes_t)
             if key is None:
                 parts = []
-                for code in reversed(codes):
+                for code in reversed(codes_t):
                     s = code_cache.get(code)
                     if s is None:
                         s = code_cache[code] = (
@@ -201,7 +208,6 @@ class FlightRecorder:
                     else:
                         frac = min(max((ns - prev) / wall_ns, 0.0), 1.0)
             folded.append((key, frac))
-        del frames
         self._cpu_prev = cpu_seen
         self._cpu_prev_t = now
         with self._counts_lock:

@@ -1367,3 +1367,81 @@ def test_tp_engine_on_the_card_matches_one_process(dev, paged):
             assert outs == want
             assert ticks and all(t == per_tick for t in ticks)
             assert shape[-2] == c.n_kv_heads // 2
+
+
+def test_dist_array_blocks_stay_on_the_card(dev):
+    """random, add, subtract, transpose, eye and dot of the distributed
+    arrays keep every block a CUDA tensor; the elementwise ops and
+    dot(eye, a) are exact, and dot lies within ``_dot_bound`` of one
+    torch.matmul on the card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.experimental import array as ra
+
+    old = ra.BLOCK_SIZE
+    ra.BLOCK_SIZE = 128
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        a = ra.random((300, 260), seed=1)
+        b = ra.random((260, 200), seed=2)
+        A, B = a.assemble(), b.assemble()
+        assert A.device.type == "cuda" and a.device.type == "cuda"
+        blocks = [rt.get(ref) for ref in a.blocks.flat]
+        assert all(blk.device == A.device for blk in blocks)
+        torch.testing.assert_close(ra.add(a, a).assemble(), A + A, atol=0,
+                                   rtol=0)
+        torch.testing.assert_close(ra.subtract(a, a).assemble(),
+                                   torch.zeros_like(A), atol=0, rtol=0)
+        torch.testing.assert_close(ra.transpose(a).assemble(), A.t(),
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(ra.dot(ra.eye(300), a).assemble(), A,
+                                   atol=0, rtol=0)
+        gap = (ra.dot(a, b).assemble().double() - (A @ B).double()).abs()
+        assert (gap <= ra._dot_bound(A, B)).all()
+    finally:
+        rt.shutdown()
+        ra.BLOCK_SIZE = old
+
+
+def test_stream_of_cuda_tensors_runs_k1_on_the_ring(dev):
+    """A DataStream job of CUDA tensors: K1 in a two-instance map, keyed
+    by index mod 4, summed in float64 (exact for these terms); the sums
+    equal the eager loop's bits on the card, K1 counted once an item, and
+    every edge took the native ring."""
+    import ray_tpu_torch as rt
+    from chip_smoke import sums_are_exact
+    from ray_tpu_torch.streaming import StreamingContext
+
+    g = _gen(18)
+    xs = [torch.randn(64, 1024, generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(16)]
+    w = (1 + 0.1 * torch.randn(1024, generator=g, device=dev)).to(
+        torch.bfloat16)
+    ys = [fused.rms_norm(x, w, 1e-5) for x in xs]
+    assert all(sums_are_exact(ys[k::4]) for k in range(4))
+    eager = {}
+    for i, y in enumerate(ys):
+        eager[i % 4] = y.double() if i % 4 not in eager \
+            else eager[i % 4] + y.double()
+    rt.init(num_cpus=4, num_gpus=1)
+    ctx = StreamingContext(batch_size=4)
+    (ctx.from_collection(list(enumerate(xs)))
+        .map(lambda ix: (ix[0], fused.rms_norm(ix[1], w, 1e-5)),
+             parallelism=2)
+        .key_by(lambda iy: iy[0] % 4, parallelism=2)
+        .reduce(lambda p, q: (p[0], p[1].double() + q[1].double()),
+                parallelism=2)
+        .sink())
+    try:
+        before = fused.rms_norm.launches
+        results = ctx.submit()
+        assert fused.rms_norm.launches - before == len(xs)
+        transports = [t for ws in ctx._workers.values() for wk in ws
+                      for t in rt.get(wk.transports.remote()).values()]
+        assert transports and set(transports) == {"native"}
+    finally:
+        ctx.shutdown()
+        rt.shutdown()
+    assert sorted(k for k, _ in results) == [0, 1, 2, 3]
+    for key, (_, total) in results:
+        assert total.device.type == "cuda"
+        assert torch.equal(total, eager[key]), key

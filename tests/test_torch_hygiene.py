@@ -33,6 +33,7 @@ from ray_tpu_torch.parallel import init_moe_params
 from ray_tpu_torch.scheduler import kernel as sched
 from ray_tpu_torch.scheduler.dag import random_dag, uniform_cluster
 from ray_tpu_torch.serve import LMBackend
+from ray_tpu_torch.experimental import array as dist_array
 from ray_tpu_torch.train import MeshTrainer, TPUTrainer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -85,7 +86,12 @@ _CLUSTER_SOURCES = sorted(
 _LIBRARY_SOURCES = sorted(
     p for d in ("tune", "util") for p in (ROOT / "ray_tpu_torch" / d).rglob(
         "*.py")) + [ROOT / "ray_tpu_torch" / "projects.py"]
-# The JAX package's knob prefix, arena and completion-ring prefixes, spill
+# Streaming (its rings are /dev/shm segments) and the experimental APIs.
+_STREAMING_SOURCES = sorted(
+    p for d in ("streaming", "experimental")
+    for p in (ROOT / "ray_tpu_torch" / d).rglob("*.py"))
+# The JAX package's knob prefix, arena, completion-ring and streaming-ring
+# prefixes, spill
 # directory, and the CLI's session, head-log and report paths: a port
 # process that named one would read the other package's settings or
 # session, or sweep its segments, on a shared machine. The results
@@ -93,12 +99,13 @@ _LIBRARY_SOURCES = sorted(
 # util: a port trial that named one would write into the other package's
 # results, or find its actors.
 _FOREIGN_NAMES = re.compile(
-    r"RAY_TPU_(?!TORCH_)|rtps-|rtcr-|ray_tpu_spill|ray_tpu_session"
+    r"RAY_TPU_(?!TORCH_)|rtps-|rtcr-|rtch-|ray_tpu_spill|ray_tpu_session"
     r"|ray_tpu_head_|ray_tpu_postmortem|ray_tpu_profile_|ray_tpu_timeline"
     r"|ray_tpu_results|__ray_tpu_named_actor_registry__|\"ray_tpu\"")
 
 
-@pytest.mark.parametrize("path", _CLUSTER_SOURCES + _LIBRARY_SOURCES,
+@pytest.mark.parametrize("path", _CLUSTER_SOURCES + _LIBRARY_SOURCES
+                         + _STREAMING_SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_cluster_sources_name_only_the_ports_own_resources(path):
     hits = [(i, line.strip()) for i, line in
@@ -200,6 +207,12 @@ def test_cluster_segment_prefixes_are_the_ports_own():
         spill.resolve_spill_dir(_Cfg(), "rtts-x"))) == "ray_tpu_torch_spill"
     src = (ROOT / "ray_tpu_torch" / "cluster" / "controller.py").read_text()
     assert 'f"rtts-{self.node_id[:12]}"' in src
+    from ray_tpu.streaming.worker import _chan_shm_name as jax_ring
+    from ray_tpu_torch.streaming.worker import _chan_shm_name as port_ring
+
+    assert port_ring("j:e0:0-1:0->0").startswith("rttch-")
+    assert jax_ring("j:e0:0-1:0->0").startswith("rtch-")
+    assert port_ring("j")[len("rttch-"):] == jax_ring("j")[len("rtch-"):]
 
 
 def _tiny():
@@ -285,6 +298,13 @@ _ENTRY_POINTS.update({
     "TPUTrainer": lambda: TPUTrainer(lambda g: {"w": torch.zeros(2)},
                                      lambda p, b: p["w"].sum(),
                                      lambda rank, world, config: iter([])),
+})
+# The distributed arrays' constructors (each takes ``device``; the array's
+# device resolves in the driver, before any block's task is queued).
+_ENTRY_POINTS.update({
+    "array_zeros": lambda: dist_array.zeros((4, 4)),
+    "array_eye": lambda: dist_array.eye(4),
+    "array_random": lambda: dist_array.random((4, 4), seed=1),
 })
 
 
@@ -722,3 +742,37 @@ def test_importing_tune_util_and_projects_loads_no_optional_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+# Streaming and the experimental APIs, one file to one file.
+_A82_A83_FILES = sorted(
+    str(p.relative_to(ROOT / "ray_tpu"))
+    for d in ("streaming", "experimental")
+    for p in (ROOT / "ray_tpu" / d).rglob("*.py"))
+
+
+def test_streaming_and_experimental_have_every_file_of_the_jax_packages():
+    assert len(_A82_A83_FILES) == 9
+    missing = [f for f in _A82_A83_FILES
+               if not (ROOT / "ray_tpu_torch" / f).is_file()]
+    assert missing == []
+    assert set(_STREAMING_SOURCES) == {ROOT / "ray_tpu_torch" / f
+                                       for f in _A82_A83_FILES}
+
+
+@pytest.mark.parametrize("name", ["ray_tpu.streaming",
+                                  "ray_tpu.experimental"])
+def test_streaming_and_experimental_export_what_the_jax_packages_do(name):
+    """Every name that the JAX package's streaming and experimental
+    packages define (``_internal_kv_*`` too) is the port's, and their
+    ``__all__`` are equal."""
+    import importlib
+    import types
+
+    jmod = importlib.import_module(name)
+    tmod = importlib.import_module(name.replace("ray_tpu", "ray_tpu_torch",
+                                                1))
+    names = {n for n, v in vars(jmod).items() if not n.startswith("__")
+             and not isinstance(v, types.ModuleType)}
+    assert names and sorted(names - set(vars(tmod))) == []
+    assert getattr(tmod, "__all__", None) == getattr(jmod, "__all__", None)

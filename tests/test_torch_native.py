@@ -10,11 +10,11 @@ are the port's own copies, ``ray_tpu_torch/_native/stress/*.cc`` and
 arena names are its own, so that it never meets the reference file's run
 beside it). Each run passes the reference's own assertions.
 
-Three twins are written out here. The JAX package's streaming worker (not
-yet ported) drives two channel tests: their port half runs the same
-channel program with the consumer's drain loop and the producer's
-backpressure loop that the JAX package's ``JobWorker`` and ``_OutChannel``
-run, and both halves must give the same records and outcomes. The cluster
+Three twins are written out here. Two channel tests drive each package's
+streaming ``JobWorker`` (its drain thread and EOF join) and
+``_OutChannel`` (its backpressure loop) over that package's ring, on
+segments named for the process, and both halves must give the same
+records and outcomes. The cluster
 test starts one cluster of each package (the port's with its GCS on the
 CPU and 4 workers a head) and holds sizes and values equal. A last test
 moves objects between the two packages' transfer servers and clients,
@@ -89,43 +89,30 @@ def _channels(pkg):
     return channel
 
 
+def _worker_module(pkg):
+    if pkg is ray_tpu:
+        from ray_tpu.streaming import worker
+    else:
+        from ray_tpu_torch.streaming import worker
+    return worker
+
+
 def _handshake_prog(pkg):
-    """20 pickled batches through a channel into a consumer that drains it
-    on a thread and joins at EOF; (sorted records, record count)."""
-    ch = _channels(pkg)
+    """20 pickled batches through a channel into a sink ``JobWorker`` that
+    drains it on its thread and joins it at EOF; (sorted records, record
+    count)."""
+    ch, wmod = _channels(pkg), _worker_module(pkg)
     name = ("rtch-tj-hs" if pkg is ray_tpu else "rttch-hs") + str(os.getpid())
     w = ch.ChannelWriter(name, capacity=1 << 20)
-    if pkg is ray_tpu:
-        from ray_tpu.streaming.worker import JobWorker
-
-        sink = JobWorker("sink", None, 0, 1)
-        channel_id = "ut-edge:0->0"
-        sink.expect_input(channel_id)
-        assert sink.open_native_channel(channel_id, name)
-    else:
-        reader = ch.ChannelReader(name, open_timeout=0.5)
-        got = []
-
-        def drain():  # JobWorker.open_native_channel's drain loop
-            while True:
-                try:
-                    got.extend(pickle.loads(reader.read(timeout=60.0)))
-                except ch.ChannelTimeout:
-                    continue
-                except ch.ChannelClosed:
-                    return
-
-        t = threading.Thread(target=drain, daemon=True)
-        t.start()
+    sink = wmod.JobWorker("sink", None, 0, 1)
+    channel_id = "ut-edge:0->0"
+    sink.expect_input(channel_id)
+    assert sink.open_native_channel(channel_id, name)
     for chunk in range(20):
         w.write(pickle.dumps(list(range(chunk * 10, chunk * 10 + 10))))
     w.close()
-    if pkg is ray_tpu:
-        assert sink.push_eof(channel_id)  # joins the drain thread
-        return sorted(sink.sink_results()), sink.stats()["records_in"]
-    t.join(15)
-    reader.close()
-    return sorted(got), len(got)
+    assert sink.push_eof(channel_id)  # joins the drain thread
+    return sorted(sink.sink_results()), sink.stats()["records_in"]
 
 
 def test_jobworker_native_handshake_end_to_end():
@@ -133,42 +120,21 @@ def test_jobworker_native_handshake_end_to_end():
     assert j == t == (list(range(200)), 200)
 
 
-def _send_with_backpressure(ch, writer, payload, window):
-    """_OutChannel._write_with_backpressure: block across windows until the
-    write lands or the consumer declares itself dead."""
-    while True:
-        try:
-            writer.write(payload, timeout=window)
-            return
-        except ch.ChannelTimeout:
-            if writer.reader_dead():
-                raise ch.ChannelClosed("consumer died")
-
-
 def _death_flag_prog(pkg, monkeypatch):
     """A writer blocked on a full ring stays blocked while the consumer is
     stalled but alive, and is released when the consumer marks itself dead;
     a draining consumer lets every batch through. (outcome, blocked, then
     released, batches drained)."""
-    ch = _channels(pkg)
+    ch, wmod = _channels(pkg), _worker_module(pkg)
     tag = "rtch-tj-" if pkg is ray_tpu else "rttch-"
     names = (f"{tag}d7-{os.getpid()}", f"{tag}d8-{os.getpid()}")
-    if pkg is ray_tpu:
-        from ray_tpu.streaming import worker as wmod
-        from ray_tpu.streaming.worker import _OutChannel
+    monkeypatch.setattr(wmod, "BACKPRESSURE_WINDOW_S", 0.2)
 
-        monkeypatch.setattr(wmod, "BACKPRESSURE_WINDOW_S", 0.2)
-
-        def sender(name):
-            out = _OutChannel.__new__(_OutChannel)  # transport only
-            out._writer = ch.ChannelWriter(name, capacity=4096)
-            out.channel_id, out.seq = name, 0
-            return out._writer, lambda batch: out.send(batch)
-    else:
-        def sender(name):
-            writer = ch.ChannelWriter(name, capacity=4096)
-            return writer, lambda batch: _send_with_backpressure(
-                ch, writer, pickle.dumps(batch, protocol=5), 0.2)
+    def sender(name):
+        out = wmod._OutChannel.__new__(wmod._OutChannel)  # transport only
+        out._writer = ch.ChannelWriter(name, capacity=4096)
+        out.channel_id, out.seq = name, 0
+        return out._writer, out.send
 
     _, send = sender(names[0])
     r = ch.ChannelReader(names[0])

@@ -1065,6 +1065,57 @@ def test_flight_recorder_rides_init_and_shutdown(monkeypatch):
         rt.shutdown()
 
 
+def test_flight_recorder_holds_no_frame_through_its_clock_reads(
+        monkeypatch):
+    """The port's sampler drops its frame snapshot before the per-thread
+    clock reads, which give up the GIL: an object that a sampled function
+    held is freed once the function returns, while the sample still runs.
+    (A held frame kept a returned stream job's CUDA sums alive past its
+    shutdown.) The stack it folds is the same."""
+    import weakref
+
+    class Held:
+        pass
+
+    entered, leave, left, done = (threading.Event() for _ in range(4))
+    refs = []
+
+    def holding_frame():
+        held = Held()
+        refs.append(weakref.ref(held))
+        entered.set()
+        leave.wait(10)
+
+    def body():
+        holding_frame()
+        left.set()
+        done.wait(10)
+
+    freed_during_reads = []
+
+    def clock_read(tid):
+        if not leave.is_set():
+            leave.set()
+            assert left.wait(10)
+            freed_during_reads.append(refs[0]() is None)
+        return None
+
+    monkeypatch.setattr(tfr, "_thread_cpu_ns", clock_read)
+    rec = tfr.FlightRecorder("driver", hz=1.0)
+    rec._tag_cpu = True
+    t = threading.Thread(target=body, name="held-frame")
+    t.start()
+    try:
+        assert entered.wait(10)
+        rec._sample_once(threading.get_ident())
+    finally:
+        leave.set()
+        done.set()
+        t.join(timeout=10)
+    assert freed_during_reads == [True]
+    assert any(":holding_frame;" in s for s in rec.drain())
+
+
 def test_node_stats_and_metric_exposition():
     """state.node_stats() gives the same keys and kinds as the reference's,
     and the two metric registries render the same Prometheus text and
