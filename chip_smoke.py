@@ -326,7 +326,24 @@ it fails:
    unpickle; (c) (b) again with a sink sleeping 5 ms a call, the same sums;
    after each ctx.shutdown() the card's allocated memory back at its level
    before the job; internal_kv and set_resource as the reference's tests
-   run them.
+   run them;
+19. rllib on the card (ray_tpu_torch.rllib) on a fresh init(num_gpus=1):
+   (a) PPO, A2C, DQN and A3C's learners at PPO_CONFIG's network on one
+   CartPole batch, their parameters CUDA tensors: the loss and gradients
+   normwise within 1e-4 of the CPU's, one Adam step from the same
+   gradients within 1e-6; PPO's whole update replayed as a CUDA graph
+   equal bit for bit to its eager steps on the card; (b) PPOTrainer on
+   CartPole at PPO_CONFIG, 2 rollout workers of 8 envs, seed 0, to
+   episode_reward_mean 150 within 30 iterations, printing each
+   iteration's wall, sampling against learning, learn_on_batch's span by
+   CUDA events and the card's busy share (the profiler's raw trace); (c)
+   PG, A2C, A3C with 2 remote workers, DQN, APEX, IMPALA, IMPALA's tree
+   aggregation, APPO, DD-PPO, ES and ARS at their reference tests'
+   configs and rewards, and the multi-agent shared policy, each one's
+   wall, and ES's one-observation env step on the card and the CPU; (d)
+   after every cleanup(), rt.shutdown() and the end of every thread the
+   phase started, this process's allocated memory within 1 MiB of its
+   level before the phase.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -3744,9 +3761,15 @@ def median_tick_ms(ticks) -> float:
 
 
 def cl_gate(path):
-    """Returns once ``path`` exists (at most 120 s)."""
+    """Returns once ``path`` exists (at most 120 s), or at once when its
+    folder is gone: the wave it gated is over. A leader promoted after a
+    failover runs again the tasks its table holds as dispatched, earlier
+    waves' gates among them; each would otherwise poll its removed path
+    for 120 s on a worker the next wave's gate needs (phase 16 (b))."""
     deadline = time.monotonic() + 120.0
     while not os.path.exists(path) and time.monotonic() < deadline:
+        if not os.path.isdir(os.path.dirname(path)):
+            break
         time.sleep(0.005)
     return 0
 
@@ -7830,6 +7853,447 @@ def streaming_path(card: str) -> dict:
     return out
 
 
+# ------------------------------------- phase 19: rllib on the card (A8.4 (i))
+
+# (b): PPO on CartPole at PPO_CONFIG (ray_tpu_torch/rllib/agents/ppo.py),
+# 2 rollout workers of 8 envs: 2,048 steps an iteration.
+RL_CARTPOLE = {"env": "CartPole", "num_workers": 2, "num_envs_per_worker": 8,
+               "seed": 0}
+RL_TARGET, RL_MAX_ITERS = 150.0, 30
+# (a): the learners' f32 losses and gradients on the card against the
+# CPU's, normwise per leaf (max |card - cpu| over max |cpu|). The card and
+# the CPU sum in different orders; the longest sum here has n = 1,024 rows,
+# whose rounding error is at most about n u = 6.1e-5 of the terms' scale
+# (u = 2^-24), and 1e-4 allows for the three layers it passes through. One
+# Adam step taken from the same gradients on both: each element is the same
+# few f32 operations, within a few ulps of parameters of order 1.
+RL_GRAD_BOUND = 1e-4
+RL_STEP_BOUND = 1e-6
+# (c): each other trainer of the part at its reference test's config and
+# min_reward (tests/test_rllib.py), on StatelessBandit or TwoStepGame.
+_RL_BANDIT = {"env": "StatelessBandit"}
+RL_BANDITS = [
+    ("PG", "PGTrainer", {**_RL_BANDIT, "num_workers": 0,
+                         "num_envs_per_worker": 8,
+                         "rollout_fragment_length": 8, "lr": 0.05,
+                         "hiddens": [16], "seed": 1}, 40, 0.85),
+    ("A2C", "A2CTrainer", {**_RL_BANDIT, "num_workers": 0,
+                           "num_envs_per_worker": 8,
+                           "rollout_fragment_length": 8, "lr": 0.05,
+                           "hiddens": [16], "seed": 1}, 40, 0.85),
+    ("A3C", "A3CTrainer", {**_RL_BANDIT, "num_workers": 2,
+                           "num_envs_per_worker": 8,
+                           "rollout_fragment_length": 8,
+                           "grads_per_step": 4, "lr": 0.02,
+                           "hiddens": [16], "seed": 1,
+                           "entropy_coeff": 0.001}, 40, 0.85),
+    ("DQN", "DQNTrainer", {**_RL_BANDIT, "num_workers": 0,
+                           "num_envs_per_worker": 4,
+                           "rollout_fragment_length": 8,
+                           "train_batch_size": 32, "learning_starts": 64,
+                           "epsilon_timesteps": 300, "final_epsilon": 0.02,
+                           "num_train_batches_per_step": 8, "lr": 0.01,
+                           "hiddens": [16], "seed": 0}, 40, 0.8),
+    ("APEX", "ApexTrainer", {**_RL_BANDIT, "num_workers": 2,
+                             "num_envs_per_worker": 4,
+                             "rollout_fragment_length": 8,
+                             "train_batch_size": 32, "learning_starts": 64,
+                             "num_replay_shards": 2,
+                             "epsilon_timesteps": 300, "final_epsilon": 0.02,
+                             "num_train_batches_per_step": 8, "lr": 0.01,
+                             "hiddens": [16], "seed": 0}, 50, 0.8),
+    ("IMPALA", "ImpalaTrainer", {**_RL_BANDIT, "num_workers": 2,
+                                 "num_envs_per_worker": 4,
+                                 "rollout_fragment_length": 8,
+                                 "train_batch_size": 64,
+                                 "sgd_minibatch_size": 32, "num_sgd_iter": 2,
+                                 "lr": 0.02, "hiddens": [16], "seed": 1,
+                                 "entropy_coeff": 0.001}, 40, 0.85),
+    ("IMPALA tree", "ImpalaTrainer", {**_RL_BANDIT, "num_workers": 3,
+                                      "num_aggregation_workers": 2,
+                                      "num_envs_per_worker": 4,
+                                      "rollout_fragment_length": 8,
+                                      "train_batch_size": 64,
+                                      "sgd_minibatch_size": 32,
+                                      "num_sgd_iter": 2, "lr": 0.02,
+                                      "hiddens": [16], "seed": 1,
+                                      "entropy_coeff": 0.001}, 40, 0.85),
+    ("APPO", "APPOTrainer", {**_RL_BANDIT, "num_workers": 2,
+                             "num_envs_per_worker": 4,
+                             "rollout_fragment_length": 8,
+                             "train_batch_size": 64,
+                             "sgd_minibatch_size": 32, "lr": 0.02,
+                             "hiddens": [16], "seed": 1,
+                             "entropy_coeff": 0.001}, 40, 0.85),
+    ("DD-PPO", "DDPPOTrainer", {**_RL_BANDIT, "num_workers": 2,
+                                "num_envs_per_worker": 4,
+                                "rollout_fragment_length": 16,
+                                "sgd_minibatch_size": 32, "num_sgd_iter": 4,
+                                "lr": 0.02, "hiddens": [16], "seed": 1,
+                                "entropy_coeff": 0.001}, 30, 0.85),
+    ("ES", "ESTrainer", {**_RL_BANDIT, "num_workers": 2,
+                         "episodes_per_batch": 16, "sigma": 0.1,
+                         "step_size": 0.1, "max_episode_steps": 1,
+                         "hiddens": [8]}, 25, 1.0),
+    ("ARS", "ARSTrainer", {**_RL_BANDIT, "num_workers": 2,
+                           "episodes_per_batch": 16, "top_directions": 4,
+                           "sigma": 0.1, "step_size": 0.2,
+                           "max_episode_steps": 4, "hiddens": [8],
+                           "seed": 0}, 25, 1.0),
+]
+# The multi-agent shared policy sampled by 2 remote workers, on TwoStepGame.
+RL_MULTI = ({"rollout_fragment_length": 32, "lr": 0.01, "hiddens": [16],
+             "seed": 0, "entropy_coeff": 0.01}, 40, 13.5)
+
+
+def rl_on(params, what: str) -> None:
+    """Every leaf of a learner's parameter tree lies on the phase's
+    device."""
+    bad = [tuple(p.shape) for p in rl_leaves(params)
+           if p.device.type != DEVICE]
+    if bad:
+        raise AssertionError(f"{what}: parameters {bad} are not on "
+                             f"{DEVICE!r}")
+
+
+def rl_leaves(tree) -> list:
+    from ray_tpu_torch._tree import tree_leaves
+
+    return [p for p in tree_leaves(tree) if isinstance(p, torch.Tensor)]
+
+
+def rl_normwise(got, want) -> float:
+    """The largest, over leaves, of max |got - want| / max |want|."""
+    worst = 0.0
+    for g, w in zip(rl_leaves(got), rl_leaves(want)):
+        w = w.double()
+        scale = w.abs().max().item() or 1.0
+        worst = max(worst, (g.cpu().double() - w).abs().max().item() / scale)
+    return worst
+
+
+def rl_abs(got, want) -> float:
+    return max((g.cpu().double() - w.double()).abs().max().item()
+               for g, w in zip(rl_leaves(got), rl_leaves(want)))
+
+
+def rl_learners(card: str) -> None:
+    """(a) PPO, A2C, DQN and A3C: a gradient and one Adam step on the card
+    against the CPU, on the same carried weights and CartPole batch."""
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.rllib import DQNPolicy, PPOPolicy, RolloutWorker
+    from ray_tpu_torch.rllib.agents.a3c import A3CPolicy
+    from ray_tpu_torch.rllib.agents.pg import A2CPolicy
+    from ray_tpu_torch.rllib.agents.ppo import PPO_CONFIG
+    from ray_tpu_torch.rllib.policy import batch_to, value_and_grad
+
+    log(f"phase 19 (a): learners on {DEVICE!r} against the CPU, f32 (TF32 "
+        f"off), PPO_CONFIG's network ([64, 64]), carried weights, one "
+        f"CartPole batch; gradients normwise within {RL_GRAD_BOUND:g}, one "
+        f"Adam step from the same gradients within {RL_STEP_BOUND:g}")
+    cpu_cfg = {**PPO_CONFIG, "seed": SEED, "device": "cpu",
+               "num_envs_per_worker": 8}
+    batch = RolloutWorker("CartPole", PPOPolicy, cpu_cfg).sample()
+    cases = {
+        "PPO": (PPOPolicy, lambda pol: pol._loss_fn,
+                PPOPolicy._batch_keys, PPO_CONFIG["sgd_minibatch_size"]),
+        "A2C": (A2CPolicy, lambda pol: pol._loss_fn,
+                A2CPolicy._batch_keys, batch.count),
+        "DQN": (DQNPolicy, lambda pol: lambda p, b: pol.loss(
+            p, pol.target_params, b), DQNPolicy._batch_keys, 64),
+    }
+    for name, (cls, loss_of, keys, rows) in cases.items():
+        pols = {dev: cls(4, 2, {**PPO_CONFIG, "seed": SEED, "device": dev})
+                for dev in ("cpu", DEVICE)}
+        pols[DEVICE].set_weights(pols["cpu"].get_weights())
+        rl_on(pols[DEVICE].params, f"(a) {name}'s learner")
+        out = {}
+        for dev, pol in pols.items():
+            b = batch_to(batch.slice(0, rows), keys, torch.device(dev))
+            out[dev] = value_and_grad(loss_of(pol), pol.params, b)
+        loss_err = rl_normwise([out[DEVICE][0]], [out["cpu"][0]])
+        grad_err = rl_normwise(out[DEVICE][2], out["cpu"][2])
+        grads = out["cpu"][2]
+        steps = {dev: pol.opt.step(pol.params, tree_map(
+            lambda g: g.to(dev), grads), pol.opt_state)[0]
+            for dev, pol in pols.items()}
+        step_err = rl_abs(steps[DEVICE], steps["cpu"])
+        log(f"  {name}: {rows} rows, loss {out['cpu'][0].item():.6f}, "
+            f"normwise error of the loss {loss_err:.2e} and gradients "
+            f"{grad_err:.2e}; one Adam step |card - cpu| {step_err:.2e}")
+        if max(loss_err, grad_err) > RL_GRAD_BOUND or \
+                step_err > RL_STEP_BOUND:
+            raise AssertionError(f"(a) {name} on the card differs from the "
+                                 f"CPU beyond its bound")
+    rl_ppo_graph(batch)
+    pols = {dev: A3CPolicy(4, 2, {**PPO_CONFIG, "seed": SEED, "device": dev})
+            for dev in ("cpu", DEVICE)}
+    pols[DEVICE].set_weights(pols["cpu"].get_weights())
+    rl_on(pols[DEVICE].params, "(a) A3C's learner")
+    grads = {dev: pol.compute_gradients(batch)[0]
+             for dev, pol in pols.items()}
+    to_t = functools.partial(tree_map, torch.as_tensor)
+    grad_err = rl_normwise(to_t(grads[DEVICE]), to_t(grads["cpu"]))
+    for pol in pols.values():
+        pol.apply_gradients(grads["cpu"])
+    step_err = rl_abs(pols[DEVICE].params, pols["cpu"].params)
+    log(f"  A3C: compute_gradients on {batch.count} rows, normwise error "
+        f"{grad_err:.2e}; apply_gradients of the CPU's gradients "
+        f"|card - cpu| {step_err:.2e}")
+    if grad_err > RL_GRAD_BOUND or step_err > RL_STEP_BOUND:
+        raise AssertionError("(a) A3C on the card differs from the CPU "
+                             "beyond its bound")
+
+
+def rl_ppo_graph(batch) -> None:
+    """PPO's whole update (8 epochs of 8 minibatches) on the card, its
+    minibatch step replayed as a CUDA graph, against the eager steps on
+    the card (the same kernels in the same order: the same bits) and
+    against the CPU's (reported)."""
+    from ray_tpu_torch.rllib import PPOPolicy
+    from ray_tpu_torch.rllib.agents.ppo import PPO_CONFIG
+    from ray_tpu_torch.rllib.policy import batch_to
+
+    cfg = {**PPO_CONFIG, "seed": SEED}
+    pols = {name: PPOPolicy(4, 2, {**cfg, "device": dev}) for name, dev in
+            (("cpu", "cpu"), ("eager", DEVICE), ("graphed", DEVICE))}
+    pols["eager"].graphed = False
+    perms = pols["cpu"].permutations(batch.count)
+    out = {}
+    for name, pol in pols.items():
+        pol.set_weights(pols["cpu"].get_weights())
+        dev = torch.device(pol.device)
+        t0 = time.perf_counter()
+        out[name] = pol.update(
+            pol.params, pol.opt_state, batch_to(batch, pol._batch_keys, dev),
+            [p.to(dev) for p in perms])
+        dev_sync()
+        log(f"  PPO's update, {name}: {len(perms)} epochs of "
+            f"{batch.count // pol.mb_size} minibatches in "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms"
+            + (" (the first: the graph's capture included)"
+               if pol.graphed else ""))
+    same = all(torch.equal(a, b) for a, b in zip(
+        rl_leaves([out["graphed"][:2]]), rl_leaves([out["eager"][:2]])))
+    log(f"  PPO's update on {DEVICE!r}: the graph's parameters and Adam "
+        f"state {'equal' if same else 'NOT equal'} to the eager steps' bit "
+        f"for bit; against the CPU's, normwise "
+        f"{rl_normwise(out['graphed'][0], out['cpu'][0]):.2e} after "
+        f"{int(out['cpu'][1]['step'])} Adam steps")
+    if not same:
+        raise AssertionError("(a) PPO's graphed update differs from its "
+                             "eager steps on the card")
+
+
+def rl_profiled(fn):
+    """fn() with the card's activity traced: its result, its host wall in
+    ms and the device time of its kernels and copies in ms (nan on the
+    CPU). The raw trace is summed as it comes from the profiler: building
+    torch.profiler's event tables for an iteration's ~20,000 kernels took
+    seconds of host time on an H100 host."""
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3, float("nan")
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.autograd import (DeviceType, ProfilerActivity, ProfilerConfig,
+                                ProfilerState, _disable_profiler,
+                                _enable_profiler, _prepare_profiler)
+
+    cfg = ProfilerConfig(ProfilerState.KINETO, False, False, False, False,
+                         False, _ExperimentalConfig())
+    acts = {ProfilerActivity.CUDA}
+    _prepare_profiler(cfg, acts)
+    _enable_profiler(cfg, acts)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        trace = _disable_profiler()
+    busy = sum(e.duration_ns() for e in trace.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    return out, wall, busy
+
+
+def rl_cartpole(card: str) -> dict:
+    """(b) PPOTrainer on CartPole at PPO_CONFIG, 2 rollout workers on the
+    card, until episode_reward_mean reaches RL_TARGET."""
+    from ray_tpu_torch.rllib import PPOTrainer
+
+    log(f"phase 19 (b): PPOTrainer on CartPole at PPO_CONFIG, "
+        f"num_workers 2, num_envs_per_worker 8, seed {SEED}, "
+        f"device={DEVICE!r}: episode_reward_mean >= {RL_TARGET:g} within "
+        f"{RL_MAX_ITERS} iterations")
+    trainer = PPOTrainer({**RL_CARTPOLE, "device": DEVICE})
+    local = trainer.workers.local_worker()
+    rl_on(local.policy.params, "(b) the learner")
+    cuda = DEVICE == "cuda"
+    tick: dict = {}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            if cuda and name == "learn":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+            out = fn(*args)
+            if cuda and name == "learn":
+                ev[1].record()
+                ev[1].synchronize()
+                tick["learn_span"] = ev[0].elapsed_time(ev[1])
+            tick[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    local.learn_on_batch = timed("learn", local.learn_on_batch)
+    trainer._train_op = timed("train_op", trainer._train_op)
+    trainer._train_step = timed("train_step", trainer._train_step)
+    rows, result = [], None
+    t_run = time.perf_counter()
+    for it in range(RL_MAX_ITERS):
+        tick.clear()
+        result, wall, busy = rl_profiled(trainer.train)
+        row = {"wall": wall, "sample": tick["train_step"] - tick["train_op"],
+               "learn": tick["learn"], "learn_span": tick.get(
+                   "learn_span", float("nan")),
+               "busy": busy / wall, "reward": result["episode_reward_mean"]}
+        rows.append(row)
+        log(f"  iteration {it:2d}: episode_reward_mean "
+            f"{row['reward']:7.2f}, wall {wall:8.3f} ms: sampling "
+            f"{row['sample']:8.3f} ms, learn_on_batch {row['learn']:8.3f} "
+            f"ms (device span {row['learn_span']:8.3f} ms by CUDA events), "
+            f"the rest {wall - tick['train_step']:7.3f} ms; card busy "
+            f"{busy:8.3f} ms, {row['busy']:6.1%} of the wall [{card}]")
+        if row["reward"] >= RL_TARGET:
+            break
+    run_s = time.perf_counter() - t_run
+    rl_on(local.policy.params, "(b) the learner after training")
+    trainer.cleanup()
+    if result["episode_reward_mean"] < RL_TARGET:
+        raise AssertionError(f"(b) PPO reached episode_reward_mean "
+                             f"{result['episode_reward_mean']:.2f} < "
+                             f"{RL_TARGET:g} in {RL_MAX_ITERS} iterations")
+    med = {k: float(np.median([r[k] for r in rows]))
+           for k in ("wall", "sample", "learn", "learn_span", "busy")}
+    log(f"  reached {result['episode_reward_mean']:.2f} after {len(rows)} "
+        f"iterations ({result['timesteps_total']} steps) in {run_s:.2f} s; "
+        f"medians: wall {med['wall']:.3f} ms, sampling {med['sample']:.3f} "
+        f"ms, learn_on_batch {med['learn']:.3f} ms (device span "
+        f"{med['learn_span']:.3f} ms), card busy {med['busy']:.1%} [{card}]")
+    return {"iterations": len(rows), "seconds": run_s, **med}
+
+
+def rl_es_step(card: str) -> dict:
+    """ES's one observation an env step (``_ESWorker._episode_return``, as
+    the JAX package's): CartPole episodes of up to 200 steps at ES_CONFIG's
+    hiddens, each step one forward and one host sync on the device, timed
+    on the phase's device and on the CPU."""
+    from ray_tpu_torch.rllib.agents.es import ES_CONFIG, _ESWorker
+
+    out = {}
+    for dev in dict.fromkeys((DEVICE, "cpu")):
+        w = _ESWorker("CartPole", ES_CONFIG["hiddens"], ES_CONFIG["sigma"],
+                      0, dev)
+        flat = w._on_device(w.flat)
+        w._episode_return(flat, 10)
+        steps, t0 = 0, time.perf_counter()
+        while steps < 1000:   # CartPole pays 1 a step: a return is steps
+            steps += int(w._episode_return(flat, 200))
+        out[dev] = (time.perf_counter() - t0) * 1e3 / steps
+    log(f"  ES's episode loop on CartPole, one observation an env step "
+        f"(a forward and a host sync): {out[DEVICE]:.4f} ms a step on "
+        f"{DEVICE!r}, {out['cpu']:.4f} ms on the CPU [{card}]")
+    return out
+
+
+def rl_bandits(card: str) -> dict:
+    """(c) every other trainer of the part, and the multi-agent shared
+    policy, on the card at its reference test's config and min_reward."""
+    import ray_tpu_torch.rllib as rllib
+
+    log(f"phase 19 (c): each other trainer on device={DEVICE!r} at its "
+        f"reference test's config (tests/test_rllib.py) until its "
+        f"min_reward")
+    walls = {}
+    for name, cls, cfg, iters, min_reward in RL_BANDITS:
+        key = "eval_return" if cls in ("ESTrainer", "ARSTrainer") \
+            else "episode_reward_mean"
+        t0 = time.perf_counter()
+        trainer = getattr(rllib, cls)({**cfg, "device": DEVICE})
+        if hasattr(trainer, "workers"):
+            rl_on(trainer.get_policy().params, f"(c) {name}'s learner")
+        try:
+            for it in range(iters):
+                result = trainer.train()
+                if result[key] >= min_reward:
+                    break
+        finally:
+            trainer.cleanup()
+        walls[name] = time.perf_counter() - t0
+        log(f"  {name:12s}: {key} {result[key]:.3f} >= {min_reward} after "
+            f"{it + 1} iterations, {walls[name]:.3f} s [{card}]")
+        if result[key] < min_reward:
+            raise AssertionError(f"(c) {name} reached {key} "
+                                 f"{result[key]:.3f} < {min_reward}")
+    cfg, iters, min_reward = RL_MULTI
+    t0 = time.perf_counter()
+    trainer = rllib.MultiAgentTrainer(
+        "TwoStepGame", policies={"shared": {}},
+        policy_mapping_fn=lambda agent_id: "shared",
+        config={**cfg, "device": DEVICE}, num_workers=2)
+    rl_on(trainer.local.policies["shared"].params, "(c) the shared policy")
+    try:
+        for it in range(iters):
+            result = trainer.train()
+            if result["episode_reward_mean"] >= min_reward:
+                break
+    finally:
+        trainer.stop()
+    walls["multi-agent"] = time.perf_counter() - t0
+    log(f"  multi-agent shared policy, 2 remote workers: "
+        f"episode_reward_mean {result['episode_reward_mean']:.3f} >= "
+        f"{min_reward} after {it + 1} iterations, "
+        f"{walls['multi-agent']:.3f} s [{card}]")
+    if result["episode_reward_mean"] < min_reward:
+        raise AssertionError("(c) the multi-agent shared policy fell short")
+    walls["es_step_ms"] = rl_es_step(card)
+    return walls
+
+
+def rllib_path(card: str) -> dict:
+    """Phase 19: rllib on the card, on a fresh local runtime; (d) this
+    process's allocated memory back within 1 MiB after the trainers'
+    cleanup() and rt.shutdown()."""
+    t_phase = time.perf_counter()
+    free0 = dev_free()
+    alloc0 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    threads0 = set(threading.enumerate())
+    rl_learners(card)
+    rt.init(num_cpus=8, num_gpus=1)
+    try:
+        out = {"cartpole": rl_cartpole(card), "bandits": rl_bandits(card)}
+    finally:
+        rt.shutdown()
+    # A killed actor finishes the call it is running; no thread of the
+    # phase may still be inside a torch op when the process exits.
+    for t in set(threading.enumerate()) - threads0:
+        t.join(timeout=30)
+        if t.is_alive():
+            raise AssertionError(f"(d) thread {t.name} outlived the phase")
+    free1 = dev_free()
+    alloc1 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    log(f"phase 19 (d): after every trainer's cleanup(), rt.shutdown() and "
+        f"the phase's threads' end, this process's allocated memory {(alloc1 - alloc0) / 2**20:+.3f} "
+        f"MiB and the card's free memory (device-wide) "
+        f"{(free1 - free0) / 2**20:+.1f} MiB against before the phase; "
+        f"phase 19 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    if abs(alloc1 - alloc0) > 2**20:
+        raise AssertionError(f"(d) this process holds {alloc1 - alloc0} "
+                             f"bytes more after the phase than before")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -7883,6 +8347,7 @@ def main() -> int:
     data_plane_path(params, cfg, main, fast, card)
     library_path(params, cfg, main, tp["one_process"], card)
     streaming_path(card)
+    rllib_path(card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -40,19 +40,22 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
-import torch
-
 __version__ = "0.1.0"
 
-Device = Union[str, torch.device, None]
+# torch is imported by the first module that computes with it, not by the
+# package: a cluster worker process that runs no tensor code starts
+# without torch's import (seconds a process).
+Device = Union[str, "torch.device", None]
 
 
-def default_device(device: Device = None) -> torch.device:
+def default_device(device: Device = None) -> "torch.device":
     """Resolve an entry point's ``device`` argument.
 
     ``None`` means the card. A CUDA device (named or defaulted) raises
     RuntimeError when no card is present, so no entry point silently runs
     on the CPU; the CPU is used only when asked for by name."""
+    import torch
+
     dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

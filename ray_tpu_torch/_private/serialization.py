@@ -20,12 +20,12 @@ Wire format of a serialized object:
 from __future__ import annotations
 
 import pickle
+import sys
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 import cloudpickle
 import numpy as np
-import torch
 
 from .. import default_device
 
@@ -140,7 +140,9 @@ class SerializationContext:
                 # Record and fall through to ObjectRef.__reduce__.
                 contained.append(obj.id.binary())
                 return NotImplemented
-            if isinstance(obj, torch.Tensor):
+            # No tensor exists in a process that has not imported torch.
+            torch = sys.modules.get("torch")
+            if torch is not None and isinstance(obj, torch.Tensor):
                 idx = len(oob_arrays)
                 oob_arrays.append(obj)
                 return (
@@ -194,14 +196,18 @@ class _Pickler(cloudpickle.CloudPickler):
         return self._file.getvalue()
 
 
-def _tensor_bytes(t: torch.Tensor) -> np.ndarray:
+def _tensor_bytes(t: "torch.Tensor") -> np.ndarray:
     """The tensor's raw bytes as a flat uint8 host array: one
     device-to-host copy for a CUDA tensor, none for a contiguous CPU one."""
+    import torch
+
     host = t.detach().cpu().contiguous()
     return host.reshape(-1).view(torch.uint8).numpy()
 
 
-def _tensor_from(buf, placeholder: "_TensorPlaceholder") -> torch.Tensor:
+def _tensor_from(buf, placeholder: "_TensorPlaceholder") -> "torch.Tensor":
+    import torch
+
     dtype = getattr(torch, placeholder.dtype)
     if not isinstance(dtype, torch.dtype):
         raise TypeError(f"not a torch dtype: {placeholder.dtype!r}")

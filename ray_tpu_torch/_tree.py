@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 import numpy as np
-import torch
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -38,9 +37,11 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def to_device(tree: Any, device: torch.device) -> Any:
+def to_device(tree: Any, device: "torch.device") -> Any:
     """A batch with every numpy array and tensor as a tensor on
     ``device`` (what the JAX package's jit does to a host batch)."""
+    import torch
+
     def move(leaf):
         if isinstance(leaf, (np.ndarray, torch.Tensor)):
             return torch.as_tensor(leaf, device=device)

@@ -11,8 +11,6 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-import torch
-
 from ._private.config import reset_config
 from ._private.resources import ResourceSet
 from ._private.runtime import LocalRuntime
@@ -67,6 +65,8 @@ def init(
     res = dict(resources or {})
     res["CPU"] = num_cpus
     if num_gpus is None:
+        import torch
+
         num_gpus = torch.cuda.device_count()
     if num_gpus:
         res["GPU"] = num_gpus

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch._tree import tree_leaves
 from ray_tpu_torch.ops import attention, fused
 
 pytestmark = pytest.mark.cuda
@@ -1445,3 +1446,49 @@ def test_stream_of_cuda_tensors_runs_k1_on_the_ring(dev):
     for key, (_, total) in results:
         assert total.device.type == "cuda"
         assert torch.equal(total, eager[key]), key
+
+
+# ------------------------------------------------- rllib's learner on the card
+
+def _ppo_batch(n, seed):
+    from ray_tpu_torch.rllib.sample_batch import (
+        ACTIONS, ADVANTAGES, LOGPS, OBS, SampleBatch, VALUE_TARGETS)
+
+    rng = np.random.RandomState(seed)
+    return SampleBatch({
+        OBS: rng.randn(n, 4).astype(np.float32),
+        ACTIONS: rng.randint(0, 2, size=n),
+        LOGPS: np.log(rng.uniform(0.3, 0.7, size=n)).astype(np.float32),
+        ADVANTAGES: rng.randn(n).astype(np.float32),
+        VALUE_TARGETS: rng.randn(n).astype(np.float32)})
+
+
+@pytest.mark.parametrize("n", [2048, 2000], ids=["cartpole", "unused_rows"])
+def test_ppo_graphed_update_gives_the_eager_steps_bits(dev, n):
+    """PPOPolicy.update on the card replays one CUDA graph a minibatch: on
+    the same weights, batch and permutations it gives the eager steps'
+    parameters, Adam state and stats bit for bit, and returns new tensors
+    (the graph's buffers are copied out, never handed over)."""
+    from ray_tpu_torch.rllib import PPOPolicy
+    from ray_tpu_torch.rllib.agents.ppo import PPO_CONFIG
+    from ray_tpu_torch.rllib.policy import batch_to
+
+    pols = [PPOPolicy(4, 2, {**PPO_CONFIG, "device": "cuda"})
+            for _ in range(2)]
+    pols[1].set_weights(pols[0].get_weights())
+    pols[1].graphed = False
+    batch = batch_to(_ppo_batch(n, 1), PPOPolicy._batch_keys, dev)
+    perms = pols[0].permutations(n)
+    out = [p.update(p.params, p.opt_state, batch, perms) for p in pols]
+    for a, b in zip(tree_leaves(out[0][0]), tree_leaves(out[1][0])):
+        assert torch.equal(a, b)
+    for key in ("mu", "nu"):
+        for a, b in zip(out[0][1][key], out[1][1][key]):
+            assert torch.equal(a, b)
+    assert int(out[0][1]["step"]) == int(out[1][1]["step"]) \
+        == PPO_CONFIG["num_sgd_iter"] * max(n // 128, 1)
+    for k in out[1][2]:
+        assert torch.equal(out[0][2][k], out[1][2][k])
+    graph = pols[0]._graphs[n]
+    ptrs = {t.data_ptr() for t in graph.p + graph.mu + graph.nu}
+    assert not ptrs & {t.data_ptr() for t in tree_leaves(out[0][0])}

@@ -8,8 +8,9 @@ shared-memory segments, spill directories and session, log and report
 files, and the library layer (tune, util, projects) its own results
 directory, named-actor registry and joblib backend; tune and util export
 what the JAX package's do and import no optional package (pandas, pyyaml,
-joblib) until a call needs it; no string in the port names a module of the
-JAX package."""
+joblib) until a call needs it; rllib has the files of the first part of
+its port and exports exactly their names; no string in the port names a
+module of the JAX package."""
 
 import ast
 import os
@@ -39,7 +40,7 @@ from ray_tpu_torch.train import MeshTrainer, TPUTrainer
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_variants.py"]
-_FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "optax", "ray_tpu")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -306,6 +307,31 @@ _ENTRY_POINTS.update({
     "array_eye": lambda: dist_array.eye(4),
     "array_random": lambda: dist_array.random((4, 4), seed=1),
 })
+
+
+def _rllib_entry_points():
+    """rllib's policies and trainers, each with no ``"device"`` in its
+    config (trainers with no remote worker, so no runtime is needed)."""
+    from ray_tpu_torch.rllib import (A2CTrainer, DQNPolicy, DQNTrainer,
+                                     ESTrainer, PPOPolicy, PPOTrainer)
+    from ray_tpu_torch.rllib.agents import a3c, es, pg
+
+    env = {"env": "StatelessBandit", "num_workers": 0}
+    return {
+        "rllib_PPOPolicy": lambda: PPOPolicy(4, 2, {}),
+        "rllib_DQNPolicy": lambda: DQNPolicy(4, 2, {}),
+        "rllib_A2CPolicy": lambda: pg.A2CPolicy(4, 2, {}),
+        "rllib_A3CPolicy": lambda: a3c.A3CPolicy(4, 2, {}),
+        "rllib_ESWorker": lambda: es._ESWorker("StatelessBandit", [8], 0.1,
+                                               0),
+        "rllib_PPOTrainer": lambda: PPOTrainer(dict(env)),
+        "rllib_A2CTrainer": lambda: A2CTrainer(dict(env)),
+        "rllib_DQNTrainer": lambda: DQNTrainer(dict(env)),
+        "rllib_ESTrainer": lambda: ESTrainer({**env, "num_workers": 0}),
+    }
+
+
+_ENTRY_POINTS.update(_rllib_entry_points())
 
 
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
@@ -776,3 +802,99 @@ def test_streaming_and_experimental_export_what_the_jax_packages_do(name):
              and not isinstance(v, types.ModuleType)}
     assert names and sorted(names - set(vars(tmod))) == []
     assert getattr(tmod, "__all__", None) == getattr(jmod, "__all__", None)
+
+
+# rllib, one file to one file: the first part of its port (the core, PPO,
+# PG/A2C, A3C, DQN, APEX, IMPALA/APPO, DD-PPO, ES/ARS). The second part's
+# agents and the names they export are still to come.
+_RLLIB_PENDING_FILES = ["agents/" + f for f in (
+    "ddpg.py", "dyna.py", "maml.py", "marwil.py", "qmix.py", "sac.py")]
+_RLLIB_PENDING_NAMES = {"DDPGTrainer", "DynaTrainer", "MAMLTrainer",
+                        "MARWILTrainer", "QMIXTrainer", "SACTrainer",
+                        "TD3Trainer"}
+_RLLIB_FILES = sorted(
+    str(p.relative_to(ROOT / "ray_tpu" / "rllib"))
+    for p in (ROOT / "ray_tpu" / "rllib").rglob("*.py"))
+_RLLIB_SOURCES = sorted((ROOT / "ray_tpu_torch" / "rllib").rglob("*.py"))
+
+
+def test_rllib_has_the_files_of_its_first_part():
+    assert len(_RLLIB_FILES) == 26
+    want = [f for f in _RLLIB_FILES if f not in _RLLIB_PENDING_FILES]
+    assert len(want) == 20      # 18 modules and 2 __init__.py
+    assert sorted(str(p.relative_to(ROOT / "ray_tpu_torch" / "rllib"))
+                  for p in _RLLIB_SOURCES) == want
+
+
+@pytest.mark.parametrize("path", _RLLIB_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_rllib_sources_import_no_jax_optax_or_jax_package(path):
+    """No import of jax, optax or ray_tpu, absolute or through a relative
+    path that leaves the port, and no string naming a module of the JAX
+    package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    depth = len(path.relative_to(ROOT / "ray_tpu_torch").parts)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level <= depth, (path, node.module)
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "optax",
+                                              "ray_tpu"), (path, name)
+    assert [v for _, v in _strings(tree)
+            if v.lstrip().startswith(("ray_tpu.", "jax"))] == []
+
+
+def test_rllib_exports_exactly_the_names_it_ports():
+    """``ray_tpu_torch.rllib`` and its ``agents`` define every public name
+    of the JAX package's but the second part's trainers, and nothing
+    else."""
+    import types
+
+    import ray_tpu.rllib as jrl
+    import ray_tpu.rllib.agents as jagents
+    import ray_tpu_torch.rllib as trl
+    import ray_tpu_torch.rllib.agents as tagents
+
+    for jmod, tmod in ((jrl, trl), (jagents, tagents)):
+        def names(mod):
+            return {n for n in _public(mod)
+                    if not isinstance(getattr(mod, n), types.ModuleType)}
+
+        assert names(tmod) == names(jmod) - _RLLIB_PENDING_NAMES
+        assert _RLLIB_PENDING_NAMES & names(jmod)
+
+
+_WORKER_PROBE = """
+import sys
+import ray_tpu_torch.cluster.worker_main
+from ray_tpu_torch.cluster.core_worker import ClusterCoreWorker
+from ray_tpu_torch._private import flight_recorder, loopmon, serialization
+print("TORCH", "torch" in sys.modules)
+"""
+
+
+def test_a_cluster_worker_process_starts_without_torch():
+    """A worker process imports torch only when its first task computes
+    with it: torch's import took seconds a process (8.4 s on an H100
+    host), and a task queued on a node with no idle worker waited for it
+    (the twin of test_review_regressions.py::
+    test_locations_batch_long_poll_parks_and_wakes woke after 5.8-6.2 s
+    alone against its 8 s bound)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "TORCH False" in out.stdout, out.stdout
+    # ... and a tensor still crosses the wire once torch is there
+    from ray_tpu_torch._private.serialization import get_context
+
+    ctx = get_context()
+    t = torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)
+    back = ctx.deserialize(ctx.serialize({"t": t}))["t"]
+    assert back.dtype == torch.bfloat16 and torch.equal(back, t)
