@@ -7944,6 +7944,56 @@ RL_BANDITS = [
 # The multi-agent shared policy sampled by 2 remote workers, on TwoStepGame.
 RL_MULTI = ({"rollout_fragment_length": 32, "lr": 0.01, "hiddens": [16],
              "seed": 0, "entropy_coeff": 0.01}, 40, 13.5)
+# (c), the second part's trainers: (name, class, config, iterations, the
+# result's key, its min reward), each its reference test's
+# (tests/test_rllib.py); MARWIL trains its 15 steps with no early stop,
+# and RL_CHECKS holds the tests' other asserts.
+_RL_CONTROL = {"env": "MoveToTarget", "num_workers": 0,
+               "num_envs_per_worker": 8, "rollout_fragment_length": 4,
+               "train_batch_size": 64, "learning_starts": 128,
+               "num_train_batches_per_step": 16, "lr": 3e-3,
+               "exploration_noise": 0.15, "hiddens": [32, 32]}
+RL_PART2 = [
+    ("SAC", "SACTrainer", {**_RL_BANDIT, "num_workers": 0,
+                           "num_envs_per_worker": 4,
+                           "rollout_fragment_length": 8,
+                           "train_batch_size": 32, "learning_starts": 64,
+                           "num_train_batches_per_step": 8, "lr": 0.01,
+                           "target_entropy": 0.05, "hiddens": [16],
+                           "seed": 0}, 40, "episode_reward_mean", 0.8),
+    ("Dyna", "DynaTrainer", {**_RL_BANDIT, "num_workers": 0,
+                             "num_envs_per_worker": 4,
+                             "rollout_fragment_length": 8,
+                             "train_batch_size": 32, "learning_starts": 64,
+                             "num_train_batches_per_step": 2,
+                             "imagined_batches_per_step": 6,
+                             "model_train_batches_per_step": 6,
+                             "epsilon_timesteps": 300, "final_epsilon": 0.02,
+                             "lr": 0.01, "model_lr": 0.01, "hiddens": [16],
+                             "model_hiddens": [16], "seed": 0}, 50,
+     "episode_reward_mean", 0.8),
+    ("TD3", "TD3Trainer", {**_RL_CONTROL, "seed": 0}, 70,
+     "episode_reward_mean", -0.15),
+    ("DDPG", "DDPGTrainer", {**_RL_CONTROL, "seed": 1}, 70,
+     "episode_reward_mean", -0.18),
+    ("MAML", "MAMLTrainer", {"env": "TaskBandit", "num_workers": 0,
+                             "num_envs_per_worker": 8,
+                             "rollout_fragment_length": 8,
+                             "meta_batch_size": 8, "inner_lr": 3.0,
+                             "meta_lr": 0.03, "hiddens": [16], "seed": 1},
+     50, "post_adapt_reward_mean", 0.6),
+    ("QMIX", "QMIXTrainer", {"seed": 1, "lr": 5e-3, "episodes_per_step": 8,
+                             "epsilon_timesteps": 800, "final_epsilon": 0.02,
+                             "learning_starts": 64,
+                             "num_train_batches_per_step": 4,
+                             "target_update_freq": 5, "hiddens": [32],
+                             "mixing_embed": 8}, 80, "episode_reward_mean",
+     15.0),
+    ("MARWIL", "MARWILTrainer", {"obs_dim": 1, "num_actions": 4,
+                                 "beta": 1.0, "lr": 0.01, "hiddens": [16],
+                                 "updates_per_step": 20}, 15, "bc_loss",
+     None),
+]
 
 
 def rl_on(params, what: str) -> None:
@@ -8043,6 +8093,185 @@ def rl_learners(card: str) -> None:
     if grad_err > RL_GRAD_BOUND or step_err > RL_STEP_BOUND:
         raise AssertionError("(a) A3C on the card differs from the CPU "
                              "beyond its bound")
+    rl_learners_part2(batch)
+
+
+def rl_hold(name: str, rows: int, out: dict, steps: dict,
+            note: str = "") -> None:
+    """(a)'s bounds for one learner: ``out[dev]`` is (its losses, its
+    gradients) on each device, ``steps[dev]`` the parameters after one Adam
+    step from the CPU's gradients."""
+    loss_err = rl_normwise(out[DEVICE][0], out["cpu"][0])
+    grad_err = rl_normwise(out[DEVICE][1], out["cpu"][1])
+    step_err = rl_abs(steps[DEVICE], steps["cpu"])
+    log(f"  {name}: {rows} rows{note}, loss {out['cpu'][0][0].item():.6f}, "
+        f"normwise error of the losses {loss_err:.2e} and gradients "
+        f"{grad_err:.2e}; one Adam step |card - cpu| {step_err:.2e}")
+    if max(loss_err, grad_err) > RL_GRAD_BOUND or step_err > RL_STEP_BOUND:
+        raise AssertionError(f"(a) {name} on the card differs from the CPU "
+                             f"beyond its bound")
+
+
+def rl_adam_steps(pols: dict, opt_of, grads) -> dict:
+    """Each device's parameters after one Adam step of ``grads`` (the
+    CPU's)."""
+    from ray_tpu_torch._tree import tree_map
+
+    out = {}
+    for dev, pol in pols.items():
+        opt, params, state = opt_of(pol)
+        out[dev] = opt.step(params, tree_map(lambda g: g.to(dev), grads),
+                            state)[0]
+    return out
+
+
+def rl_learners_part2(cartpole) -> None:
+    """(a) the second part's learners, each on DEVICE against the CPU on
+    carried weights and one batch: DDPG's and TD3's critic and actor
+    gradients on an update that steps the actor and one that the delay
+    may skip, SAC's (log_alpha among the leaves), Dyna's model, MARWIL's,
+    MAML's second-order meta-gradient and QMIX's."""
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.rllib import RolloutWorker
+    from ray_tpu_torch.rllib.agents import (ddpg, dyna, maml, marwil, qmix,
+                                            sac)
+    from ray_tpu_torch.rllib.models import init_mlp
+    from ray_tpu_torch.rllib.policy import (Adam, batch_to, to_device,
+                                            to_host, value_and_grad)
+
+    def carried(pols):
+        pols[DEVICE].set_weights(pols["cpu"].get_weights())
+        return pols
+
+    # DDPG and TD3 on a MoveToTarget batch of 256 rows.
+    moves = RolloutWorker("MoveToTarget", ddpg.DDPGPolicy, {
+        **ddpg.DDPG_CONFIG, "seed": SEED, "device": "cpu",
+        "num_envs_per_worker": 8, "rollout_fragment_length": 32}).sample()
+    gen = torch.Generator().manual_seed(SEED)
+    noise = torch.randn((moves.count, 2), generator=gen)
+    for name, cfg in (("DDPG", ddpg.DDPG_CONFIG), ("TD3", ddpg.TD3_CONFIG)):
+        pols = carried({dev: ddpg.DDPGPolicy(2, 2, {**cfg, "seed": SEED,
+                                                    "device": dev})
+                        for dev in ("cpu", DEVICE)})
+        rl_on(pols[DEVICE].params, f"(a) {name}'s learner")
+        for n_updates in (0, 1):
+            out = {}
+            for dev, pol in pols.items():
+                stats, grads = pol.gradients(
+                    pol.params, pol.target, n_updates,
+                    batch_to(moves, pol._batch_keys, torch.device(dev)),
+                    noise.to(dev))
+                out[dev] = ([stats["critic_loss"], stats["actor_loss"]],
+                            grads)
+            skipped = n_updates % cfg["policy_delay"] != 0
+            if skipped and any(g.any() for g in rl_leaves(
+                    [out[d][1]["actor"] for d in pols])):
+                raise AssertionError(f"(a) {name}: the delay's skipped step "
+                                     f"has a non-zero actor gradient")
+            steps = rl_adam_steps(pols, lambda p: (p.opt, p.params,
+                                                   p.opt_state),
+                                  out["cpu"][1])
+            rl_hold(name, moves.count, out, steps,
+                    f", update {n_updates} (the actor "
+                    f"{'skipped' if skipped else 'stepped'})")
+
+    # SAC, Dyna's model and MARWIL on CartPole rows.
+    rows = cartpole.slice(0, sac.SAC_CONFIG["train_batch_size"])
+    pols = carried({dev: sac.SACPolicy(4, 2, {**sac.SAC_CONFIG, "seed": SEED,
+                                              "device": dev})
+                    for dev in ("cpu", DEVICE)})
+    rl_on(pols[DEVICE].params, "(a) SAC's learner")
+    out = {}
+    for dev, pol in pols.items():
+        loss, stats, grads = value_and_grad(
+            lambda p, b: pol.loss(p, pol.target, b), pol.params,
+            batch_to(rows, pol._batch_keys, torch.device(dev)))
+        out[dev] = ([loss] + list(stats.values()), grads)
+    rl_hold("SAC", rows.count, out, rl_adam_steps(
+        pols, lambda p: (p.opt, p.params, p.opt_state), out["cpu"][1]))
+
+    rows = cartpole.slice(0, dyna.DYNA_CONFIG["train_batch_size"])
+    models = {dev: dyna._DynamicsModel(4, 2, {**dyna.DYNA_CONFIG,
+                                              "seed": SEED, "device": dev})
+              for dev in ("cpu", DEVICE)}
+    models[DEVICE].params = to_device(to_host(models["cpu"].params), DEVICE)
+    rl_on(models[DEVICE].params, "(a) Dyna's model")
+    out = {}
+    for dev, m in models.items():
+        loss, _, grads = value_and_grad(
+            m.loss, m.params, batch_to(rows, m._batch_keys,
+                                       torch.device(dev)))
+        out[dev] = ([loss], grads)
+    rl_hold("Dyna's model", rows.count, out, rl_adam_steps(
+        models, lambda m: (m.opt, m.params, m.opt_state), out["cpu"][1]))
+
+    cfg = marwil.MARWIL_CONFIG
+    rows = marwil.MARWILTrainer._with_returns(
+        cartpole.slice(0, cfg["train_batch_size"]), cfg["gamma"])
+    gen = torch.Generator().manual_seed(SEED)
+    params = {"pi": init_mlp(gen, [4] + cfg["hiddens"] + [2]),
+              "vf": init_mlp(gen, [4] + cfg["hiddens"] + [1])}
+    loss_fn = marwil.make_marwil_loss(cfg["beta"], cfg["vf_coeff"])
+    learners = {dev: to_device(to_host(params), dev)
+                for dev in ("cpu", DEVICE)}
+    rl_on(learners[DEVICE], "(a) MARWIL's learner")
+    out = {}
+    for dev, p in learners.items():
+        loss, stats, grads = value_and_grad(
+            loss_fn, p, batch_to(rows, ("obs", "actions", "returns"),
+                                 torch.device(dev)))
+        out[dev] = ([loss] + list(stats.values()), grads)
+    opt = Adam(cfg["lr"])
+    rl_hold("MARWIL", rows.count, out, rl_adam_steps(
+        learners, lambda p: (opt, p, opt.init(p)), out["cpu"][1]))
+
+    # MAML at its reference test's config: 8 TaskBandit tasks, each a
+    # support and a query batch of 64 rows, inner_lr 3.0.
+    cfg = {**maml.MAML_CONFIG, "num_envs_per_worker": 8,
+           "rollout_fragment_length": 8, "meta_batch_size": 8,
+           "inner_lr": 3.0, "meta_lr": 0.03, "hiddens": [16], "seed": SEED}
+    worker = RolloutWorker("TaskBandit", maml.MAMLPolicy,
+                           {**cfg, "device": "cpu"})
+    theta = worker.policy.get_weights()
+    pairs = [maml._run_task(worker, t, theta)
+             for t in worker.vec_env.envs[0].sample_tasks(8)]
+    pols = {dev: maml.MAMLPolicy(1, 4, {**cfg, "device": dev})
+            for dev in ("cpu", DEVICE)}
+    for pol in pols.values():
+        pol.set_weights(theta)
+    rl_on(pols[DEVICE].params, "(a) MAML's learner")
+    out = {}
+    for dev, pol in pols.items():
+        loss, _, grads = value_and_grad(
+            pol.meta_loss, pol.params, pol._to_device([s for s, _ in pairs]),
+            pol._to_device([q for _, q in pairs]))
+        out[dev] = ([loss], grads)
+    rl_hold("MAML", 8 * pairs[0][0].count, out, rl_adam_steps(
+        pols, lambda p: (p.opt, p.params, p.opt_state), out["cpu"][1]),
+        ", 8 tasks, the second-order meta-gradient at inner_lr 3.0")
+
+    # QMIX on 32 TwoStepGame transitions from a CPU trainer's replay.
+    cfg = {**qmix.QMIX_CONFIG, "seed": SEED}
+    trainer = qmix.QMIXTrainer("TwoStepGame", {**cfg, "device": "cpu"})
+    for _ in range(4):
+        trainer.train()
+    idx = np.random.RandomState(SEED).randint(0, len(trainer._replay), 32)
+    rows = {k: np.stack([trainer._replay[i][k] for i in idx])
+            for k in trainer._replay[0]}
+    pols = {dev: qmix.QMIXPolicy(2, 4, 2, 8, {**cfg, "device": dev})
+            for dev in ("cpu", DEVICE)}
+    pols[DEVICE].params = to_device(to_host(pols["cpu"].params), DEVICE)
+    pols[DEVICE].target = to_device(to_host(pols["cpu"].target), DEVICE)
+    rl_on(pols[DEVICE].params, "(a) QMIX's learner")
+    out = {}
+    for dev, pol in pols.items():
+        batch = {k: torch.as_tensor(v.astype(np.float32), device=dev)
+                 for k, v in rows.items()}
+        loss, stats, grads = value_and_grad(
+            lambda p, b: pol.loss(p, pol.target, b), pol.params, batch)
+        out[dev] = ([loss] + list(stats.values()), grads)
+    rl_hold("QMIX", 32, out, rl_adam_steps(
+        pols, lambda p: (p.opt, p.params, p.opt_state), out["cpu"][1]))
 
 
 def rl_ppo_graph(batch) -> None:
@@ -8207,9 +8436,103 @@ def rl_es_step(card: str) -> dict:
     return out
 
 
+def rl_learner(trainer):
+    """The parameter tree of a trainer's learner, which must lie on the
+    card: its local policy's, QMIX's joint policy's, MARWIL's own; None for
+    ES and ARS, whose flat parameters live on the host (their workers
+    evaluate them on the card)."""
+    from ray_tpu_torch.rllib import ARSTrainer, ESTrainer, MARWILTrainer
+    from ray_tpu_torch.rllib import QMIXTrainer
+
+    if isinstance(trainer, (ESTrainer, ARSTrainer)):
+        return None
+    if isinstance(trainer, QMIXTrainer):
+        return trainer.policy.params
+    if isinstance(trainer, MARWILTrainer):
+        return trainer.params
+    return trainer.get_policy().params
+
+
+def rl_expert_rows(path: str) -> None:
+    """test_marwil_clones_expert's offline data: 300 bandit rows, the
+    expert's arm 2 seven times in ten, written with JsonWriter."""
+    from ray_tpu_torch.rllib import JsonWriter, SampleBatch
+
+    rng = np.random.RandomState(0)
+    acts = [2 if rng.rand() < 0.7 else rng.randint(4) for _ in range(300)]
+    w = JsonWriter(path)
+    w.write(SampleBatch({
+        "obs": np.zeros((300, 1), np.float32), "actions": np.asarray(acts),
+        "rewards": (np.asarray(acts) == 2).astype(np.float32),
+        "dones": np.ones(300, np.float32)}))
+    w.close()
+
+
+def rl_train(name: str, make, iters: int, key: str, min_reward, card: str,
+             check=None):
+    """A trainer made by ``make()``, its learner checked on the card, trained
+    until ``result[key] >= min_reward`` (all ``iters`` when None), held to
+    ``check(trainer, result)`` (which raises, or returns a note for the
+    log), then stopped (QMIX's ``stop``, every other's ``cleanup``):
+    (result, wall s)."""
+    from ray_tpu_torch.rllib import QMIXTrainer
+
+    t0 = time.perf_counter()
+    trainer = make()
+    try:
+        params = rl_learner(trainer)
+        if params is not None:
+            rl_on(params, f"(c) {name}'s learner")
+        for it in range(iters):
+            result = trainer.train()
+            if min_reward is not None and result[key] >= min_reward:
+                break
+        if params is not None:
+            rl_on(rl_learner(trainer), f"(c) {name}'s learner after training")
+        extra = check(trainer, result) if check else ""
+    finally:
+        trainer.stop() if isinstance(trainer, QMIXTrainer) \
+            else trainer.cleanup()
+    wall = time.perf_counter() - t0
+    log(f"  {name:12s}: {key} {result[key]:.3f}"
+        + (f" >= {min_reward}" if min_reward is not None else "")
+        + f" after {it + 1} iterations{extra}, {wall:.3f} s [{card}]")
+    if min_reward is not None and result[key] < min_reward:
+        raise AssertionError(f"(c) {name} reached {key} "
+                             f"{result[key]:.3f} < {min_reward}")
+    return result, wall
+
+
+def rl_dyna_check(trainer, result) -> str:
+    if result["model_loss"] >= 0.15:
+        raise AssertionError(f"(c) Dyna's model_loss "
+                             f"{result['model_loss']:.3f} >= 0.15")
+    return f", model_loss {result['model_loss']:.3f}"
+
+
+def rl_maml_check(trainer, result) -> str:
+    gain = result["post_adapt_reward_mean"] - result["pre_adapt_reward_mean"]
+    if gain < 0.2:
+        raise AssertionError(f"(c) MAML's adaptation gains {gain:.3f} < 0.2")
+    return f", post minus pre {gain:.3f}"
+
+
+def rl_marwil_check(trainer, result) -> str:
+    action = trainer.compute_action(np.zeros(1))
+    if action != 2 or result["bc_loss"] >= 2.0:
+        raise AssertionError(f"(c) MARWIL chose arm {action} with bc_loss "
+                             f"{result['bc_loss']:.3f}")
+    return f", greedy arm {action}"
+
+
+# (c)'s checks beyond the min reward, each its reference test's.
+RL_CHECKS = {"Dyna": rl_dyna_check, "MAML": rl_maml_check,
+             "MARWIL": rl_marwil_check}
+
+
 def rl_bandits(card: str) -> dict:
-    """(c) every other trainer of the part, and the multi-agent shared
-    policy, on the card at its reference test's config and min_reward."""
+    """(c) every other trainer of rllib, and the multi-agent shared policy,
+    on the card at its reference test's config and min_reward."""
     import ray_tpu_torch.rllib as rllib
 
     log(f"phase 19 (c): each other trainer on device={DEVICE!r} at its "
@@ -8219,23 +8542,23 @@ def rl_bandits(card: str) -> dict:
     for name, cls, cfg, iters, min_reward in RL_BANDITS:
         key = "eval_return" if cls in ("ESTrainer", "ARSTrainer") \
             else "episode_reward_mean"
-        t0 = time.perf_counter()
-        trainer = getattr(rllib, cls)({**cfg, "device": DEVICE})
-        if hasattr(trainer, "workers"):
-            rl_on(trainer.get_policy().params, f"(c) {name}'s learner")
-        try:
-            for it in range(iters):
-                result = trainer.train()
-                if result[key] >= min_reward:
-                    break
-        finally:
-            trainer.cleanup()
-        walls[name] = time.perf_counter() - t0
-        log(f"  {name:12s}: {key} {result[key]:.3f} >= {min_reward} after "
-            f"{it + 1} iterations, {walls[name]:.3f} s [{card}]")
-        if result[key] < min_reward:
-            raise AssertionError(f"(c) {name} reached {key} "
-                                 f"{result[key]:.3f} < {min_reward}")
+        _, walls[name] = rl_train(
+            name, lambda: getattr(rllib, cls)({**cfg, "device": DEVICE}),
+            iters, key, min_reward, card)
+    with tempfile.TemporaryDirectory() as data:
+        rl_expert_rows(data)
+        for name, cls, cfg, iters, key, min_reward in RL_PART2:
+            cfg = {**cfg, "device": DEVICE}
+            if cls == "QMIXTrainer":
+                make = functools.partial(rllib.QMIXTrainer, "TwoStepGame",
+                                         cfg)
+            elif cls == "MARWILTrainer":
+                make = functools.partial(rllib.MARWILTrainer,
+                                         {**cfg, "input_path": data})
+            else:
+                make = functools.partial(getattr(rllib, cls), cfg)
+            _, walls[name] = rl_train(name, make, iters, key, min_reward,
+                                      card, RL_CHECKS.get(name))
     cfg, iters, min_reward = RL_MULTI
     t0 = time.perf_counter()
     trainer = rllib.MultiAgentTrainer(

@@ -4,9 +4,11 @@ rllib/).
 Policies are plain functions on tensor trees in PyTorch, stepping on the
 card unless a trainer's config names ``"device": "cpu"``; rollout workers
 are actors with vectorized envs; training loops compose the execution ops
-the way the reference's execution plans do. Algorithms ported so far: PPO,
-APPO, DD-PPO, A2C/PG, DQN (+prioritized replay), APEX, IMPALA (+tree
-aggregation), ES, ARS, A3C (async hogwild grads). Envs: vectorized
+the way the reference's execution plans do. Algorithms: PPO, APPO, DD-PPO,
+A2C/PG, DQN (+prioritized replay), APEX, IMPALA (+tree aggregation), SAC,
+DDPG/TD3, QMIX, MARWIL, ES, ARS, A3C (async hogwild grads), MAML
+(second-order meta-gradient through each inner step's graph), Dyna
+(learned dynamics + imagined replay). Envs: vectorized
 discrete/continuous, MultiAgentEnv with policy mapping, ExternalEnv
 serving, TaskBandit task distribution for meta-RL. Weights are numpy trees
 in the JAX package's layout, so checkpoints carry across.
@@ -18,12 +20,19 @@ from .agents import (  # noqa: F401
     ApexTrainer,
     APPOTrainer,
     ARSTrainer,
+    DDPGTrainer,
     DDPPOTrainer,
     DQNTrainer,
+    DynaTrainer,
     ESTrainer,
     ImpalaTrainer,
+    MAMLTrainer,
+    MARWILTrainer,
     PGTrainer,
     PPOTrainer,
+    QMIXTrainer,
+    SACTrainer,
+    TD3Trainer,
     Trainer,
     build_trainer,
 )

@@ -90,13 +90,28 @@ def value_and_grad(loss_fn: Callable, params, *args):
             tree_map(lambda _: next(it), params))
 
 
+def aligned(tree, like) -> List[Any]:
+    """``tree``'s leaves in the order of ``like``'s: dicts are matched by
+    key, whatever order each holds them in (the JAX package's trees come
+    with sorted keys, the port's in the order they were built)."""
+    return tree_leaves(tree_map(lambda _, x: x, like, tree))
+
+
+def rebuilt(leaves: Sequence[Any], like):
+    """``leaves``, in ``like``'s order, as a tree of ``like``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 class Adam:
     """``optax.adam(lr)`` on trees: b1 0.9, b2 0.999, eps 1e-8 outside the
     square root, eps_root 0, bias correction by the step count, through
     PyTorch's fused Adam kernel (one launch for every leaf; optax's
     arithmetic up to the order of its roundings). ``step`` returns new
     parameter and state trees and changes none in place; ``step_`` steps
-    given leaves in place (the graphed update's own buffers)."""
+    given leaves in place (the graphed update's own buffers). The moments
+    are trees of the parameters' structure, matched to the parameters by
+    key at every step."""
 
     def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
@@ -105,8 +120,8 @@ class Adam:
     def init(self, params) -> Dict[str, Any]:
         leaves = tree_leaves(params)
         return {"step": torch.zeros((), device=leaves[0].device),
-                "mu": [torch.zeros_like(p) for p in leaves],
-                "nu": [torch.zeros_like(p) for p in leaves]}
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
 
     def step_(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               mu: List[torch.Tensor], nu: List[torch.Tensor],
@@ -120,13 +135,12 @@ class Adam:
 
     def step(self, params, grads, state):
         p = [t.clone() for t in tree_leaves(params)]
-        mu = [t.clone() for t in state["mu"]]
-        nu = [t.clone() for t in state["nu"]]
+        mu = [t.clone() for t in aligned(state["mu"], params)]
+        nu = [t.clone() for t in aligned(state["nu"], params)]
         step = state["step"] + 1
-        self.step_(p, tree_leaves(grads), mu, nu, step)
-        new = iter(p)
-        return (tree_map(lambda _: next(new), params),
-                {"step": step, "mu": mu, "nu": nu})
+        self.step_(p, aligned(grads, params), mu, nu, step)
+        return rebuilt(p, params), {"step": step, "mu": rebuilt(mu, params),
+                                    "nu": rebuilt(nu, params)}
 
 
 _CAPTURE_LOCK = threading.Lock()
@@ -193,9 +207,9 @@ class GraphedUpdate:
             torch.cuda.current_stream(dev).wait_stream(side)
 
     def load(self, params, state, batch: Dict[str, torch.Tensor]) -> None:
-        torch._foreach_copy_(self.p, tree_leaves(params))
-        torch._foreach_copy_(self.mu, state["mu"])
-        torch._foreach_copy_(self.nu, state["nu"])
+        torch._foreach_copy_(self.p, aligned(params, self.tree))
+        torch._foreach_copy_(self.mu, aligned(state["mu"], self.tree))
+        torch._foreach_copy_(self.nu, aligned(state["nu"], self.tree))
         self.count.copy_(state["step"])
         for k, v in batch.items():
             self.batch[k].copy_(v)
@@ -206,13 +220,13 @@ class GraphedUpdate:
         self.graph.replay()
 
     def params_out(self, params):
-        new = iter([t.clone() for t in self.p])
-        return tree_map(lambda _: next(new), params)
+        return rebuilt([t.clone() for t in aligned(self.tree, params)],
+                       params)
 
     def state_out(self) -> Dict[str, Any]:
         return {"step": self.count.clone(),
-                "mu": [t.clone() for t in self.mu],
-                "nu": [t.clone() for t in self.nu]}
+                "mu": rebuilt([t.clone() for t in self.mu], self.tree),
+                "nu": rebuilt([t.clone() for t in self.nu], self.tree)}
 
 
 def stats_to_floats(stats: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -55,6 +55,14 @@ import torch
 
 from .. import Device, default_device
 
+# The placement passes: the JAX package's jax.jit programs, and the chain
+# collapse around schedule_dag. Each has its scalar mirror
+# ``<name>_reference`` in reference.py, or is the spec itself (the threefry
+# draw, whose host twin reference.py imports); the linter's kernel-purity
+# rule holds them to that and to pure bodies (ray_tpu_torch/devtools/lint).
+PASSES = ("task_bits", "schedule_dag", "admit_gangs", "classify_pending",
+          "score_locality", "schedule_dag_collapsed")
+
 NO_PLACEMENT = -1   # not (yet) placed
 INFEASIBLE = -2     # cannot fit on any node even when idle
 

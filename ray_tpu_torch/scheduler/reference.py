@@ -278,3 +278,25 @@ def score_locality_reference(input_bytes: np.ndarray) -> np.ndarray:
                 best_node = n
         out[t] = best_node
     return out
+
+
+def schedule_dag_collapsed_reference(
+    demand: np.ndarray,
+    parents: np.ndarray,
+    avail: np.ndarray,
+    key,
+    locality: Optional[np.ndarray] = None,
+    chunk: int = 8192,
+    max_rounds: int = 0,
+) -> Tuple[np.ndarray, int]:
+    """Scalar reference of ``schedule_dag_collapsed``: the same chain
+    collapse (``dag.collapse_chains``), the reduced DAG placed by
+    ``schedule_dag_reference``, each head's node broadcast to its chain."""
+    from .dag import collapse_chains
+
+    r_demand, r_parents, r_locality, expand = collapse_chains(
+        np.asarray(demand), np.asarray(parents), locality)
+    placement, rounds = schedule_dag_reference(
+        r_demand, r_parents, avail, key, locality=r_locality, chunk=chunk,
+        max_rounds=max_rounds)
+    return np.asarray(placement)[expand], int(rounds)

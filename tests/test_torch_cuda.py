@@ -1483,7 +1483,10 @@ def test_ppo_graphed_update_gives_the_eager_steps_bits(dev, n):
     for a, b in zip(tree_leaves(out[0][0]), tree_leaves(out[1][0])):
         assert torch.equal(a, b)
     for key in ("mu", "nu"):
-        for a, b in zip(out[0][1][key], out[1][1][key]):
+        moments = [tree_leaves(o[1][key]) for o in out]
+        assert len(moments[0]) == len(moments[1]) \
+            == len(tree_leaves(out[0][0]))
+        for a, b in zip(*moments):
             assert torch.equal(a, b)
     assert int(out[0][1]["step"]) == int(out[1][1]["step"]) \
         == PPO_CONFIG["num_sgd_iter"] * max(n // 128, 1)

@@ -8,9 +8,10 @@ shared-memory segments, spill directories and session, log and report
 files, and the library layer (tune, util, projects) its own results
 directory, named-actor registry and joblib backend; tune and util export
 what the JAX package's do and import no optional package (pandas, pyyaml,
-joblib) until a call needs it; rllib has the files of the first part of
-its port and exports exactly their names; no string in the port names a
-module of the JAX package."""
+joblib) until a call needs it; rllib has every file of the JAX package's
+and exports exactly its names; devtools (the linter) has every file of
+the JAX package's and imports neither it nor jax; no string in the port
+names a module of the JAX package."""
 
 import ast
 import os
@@ -804,31 +805,21 @@ def test_streaming_and_experimental_export_what_the_jax_packages_do(name):
     assert getattr(tmod, "__all__", None) == getattr(jmod, "__all__", None)
 
 
-# rllib, one file to one file: the first part of its port (the core, PPO,
-# PG/A2C, A3C, DQN, APEX, IMPALA/APPO, DD-PPO, ES/ARS). The second part's
-# agents and the names they export are still to come.
-_RLLIB_PENDING_FILES = ["agents/" + f for f in (
-    "ddpg.py", "dyna.py", "maml.py", "marwil.py", "qmix.py", "sac.py")]
-_RLLIB_PENDING_NAMES = {"DDPGTrainer", "DynaTrainer", "MAMLTrainer",
-                        "MARWILTrainer", "QMIXTrainer", "SACTrainer",
-                        "TD3Trainer"}
+# rllib, one file to one file: the core, PPO, PG/A2C, A3C, DQN, APEX,
+# IMPALA/APPO, DD-PPO, ES/ARS, DDPG/TD3, SAC, MAML, Dyna, QMIX and MARWIL.
 _RLLIB_FILES = sorted(
     str(p.relative_to(ROOT / "ray_tpu" / "rllib"))
     for p in (ROOT / "ray_tpu" / "rllib").rglob("*.py"))
 _RLLIB_SOURCES = sorted((ROOT / "ray_tpu_torch" / "rllib").rglob("*.py"))
 
 
-def test_rllib_has_the_files_of_its_first_part():
-    assert len(_RLLIB_FILES) == 26
-    want = [f for f in _RLLIB_FILES if f not in _RLLIB_PENDING_FILES]
-    assert len(want) == 20      # 18 modules and 2 __init__.py
+def test_rllib_has_every_file_of_the_jax_package():
+    assert len(_RLLIB_FILES) == 26      # 24 modules and 2 __init__.py
     assert sorted(str(p.relative_to(ROOT / "ray_tpu_torch" / "rllib"))
-                  for p in _RLLIB_SOURCES) == want
+                  for p in _RLLIB_SOURCES) == _RLLIB_FILES
 
 
-@pytest.mark.parametrize("path", _RLLIB_SOURCES,
-                         ids=lambda p: str(p.relative_to(ROOT)))
-def test_rllib_sources_import_no_jax_optax_or_jax_package(path):
+def _imports_nothing_of_jax(path):
     """No import of jax, optax or ray_tpu, absolute or through a relative
     path that leaves the port, and no string naming a module of the JAX
     package."""
@@ -849,9 +840,15 @@ def test_rllib_sources_import_no_jax_optax_or_jax_package(path):
             if v.lstrip().startswith(("ray_tpu.", "jax"))] == []
 
 
+@pytest.mark.parametrize("path", _RLLIB_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_rllib_sources_import_no_jax_optax_or_jax_package(path):
+    _imports_nothing_of_jax(path)
+
+
 def test_rllib_exports_exactly_the_names_it_ports():
     """``ray_tpu_torch.rllib`` and its ``agents`` define every public name
-    of the JAX package's but the second part's trainers, and nothing
+    of the JAX package's, its eighteen trainers among them, and nothing
     else."""
     import types
 
@@ -865,8 +862,44 @@ def test_rllib_exports_exactly_the_names_it_ports():
             return {n for n in _public(mod)
                     if not isinstance(getattr(mod, n), types.ModuleType)}
 
-        assert names(tmod) == names(jmod) - _RLLIB_PENDING_NAMES
-        assert _RLLIB_PENDING_NAMES & names(jmod)
+        assert names(tmod) == names(jmod)
+        assert {"DDPGTrainer", "DynaTrainer", "MAMLTrainer",
+                "MARWILTrainer", "QMIXTrainer", "SACTrainer",
+                "TD3Trainer"} <= names(tmod)
+
+
+# The linter (A8.5), one file to one file, and its command line.
+_DEVTOOLS_FILES = sorted(
+    str(p.relative_to(ROOT / "ray_tpu" / "devtools"))
+    for p in (ROOT / "ray_tpu" / "devtools").rglob("*.py"))
+_DEVTOOLS_SOURCES = sorted((ROOT / "ray_tpu_torch" / "devtools").rglob(
+    "*.py"))
+
+
+def test_devtools_has_every_file_of_the_jax_package():
+    assert len(_DEVTOOLS_FILES) == 12
+    assert sorted(str(p.relative_to(ROOT / "ray_tpu_torch" / "devtools"))
+                  for p in _DEVTOOLS_SOURCES) == _DEVTOOLS_FILES
+
+
+@pytest.mark.parametrize("path", _DEVTOOLS_SOURCES + [
+    ROOT / "ray_tpu_torch" / "scripts" / "lint.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_devtools_sources_import_no_jax_or_jax_package(path):
+    """The linter's rules speak of jax nowhere either: kernel-purity
+    finds the port's passes by its PASSES tuple, not by ``@jax.jit``."""
+    _imports_nothing_of_jax(path)
+    assert "jax" not in path.read_text()
+
+
+def test_the_linter_scans_the_port_and_keeps_its_own_baseline():
+    from ray_tpu_torch.devtools.lint import baseline, engine
+
+    assert engine.SCAN_ROOTS == ("ray_tpu_torch", "tests")
+    assert baseline.BASELINE_NAME == ".raylint_torch_baseline.json"
+    paths = [c.paths for c in engine.ALL_CHECKERS if hasattr(c, "paths")]
+    assert paths and all(p.startswith("ray_tpu_torch/")
+                         for ps in paths for p in ps)
 
 
 _WORKER_PROBE = """

@@ -1,6 +1,6 @@
-"""The port's rllib against the JAX package's, on the CPU: twins of the 25
-tests of tests/test_rllib.py that the first part of the port covers (the
-core, PPO, PG/A2C, A3C, DQN, APEX, IMPALA/APPO, DD-PPO, ES/ARS and the
+"""The port's rllib against the JAX package's, on the CPU: twins of the 32
+tests of tests/test_rllib.py (the core, PPO, PG/A2C, A3C, DQN, APEX,
+IMPALA/APPO, DD-PPO, ES/ARS, MARWIL, SAC, QMIX, DDPG/TD3, MAML, Dyna and the
 multi-agent and external-env samplers).
 
 Each twin runs the reference test's own program twice (``LibTwin`` of
@@ -17,9 +17,8 @@ generators), so its record holds none of them and the port is held to what
 the reference test asserts.
 
 Two reference tests call jax in their bodies and are written out here in
-torch; the seven of the second part (MARWIL, SAC, QMIX, TD3, DDPG, MAML,
-Dyna) are listed as pending, and a test fails on any reference test that
-is neither twinned, written out nor listed."""
+torch, and a test fails on any reference test that is neither twinned,
+written out nor listed as pending (none is)."""
 
 import numpy as np
 import pytest
@@ -65,14 +64,8 @@ _PATCHES = {
 # attribute, so that a patch there records the call.
 _FORWARDED = {"compute_gae": "rllib.sample_batch"}
 
-# The reference tests of the second part of the port, whose trainers it
-# has not yet; each imports its trainer inside its body.
-PENDING = ("test_marwil_clones_expert", "test_sac_learns_bandit",
-           "test_qmix_learns_two_step_coordination",
-           "test_td3_learns_continuous_control",
-           "test_ddpg_learns_continuous_control",
-           "test_maml_adapts_to_new_tasks",
-           "test_dyna_learns_bandit_from_model")
+# Reference tests whose trainers the port has not yet.
+PENDING = ()
 # The reference tests that call jax in their bodies, written out below.
 WRITTEN_OUT = ("test_trainer_checkpoint_restore",
                "test_model_catalog_convnet_lstm_distributions")
@@ -88,7 +81,12 @@ RLLIB = LibTwin("test_rllib", _PATCHES, fixtures=_LOCAL_RAY, renames=[
     ('"env": "StatelessBandit"', '"env": "StatelessBandit", "device": "cpu"'),
     ('config={"rollout_fragment_length":',
      'config={"device": "cpu", "rollout_fragment_length":'),
-    ('cfg = {"lr": 0.02,', 'cfg = {"device": "cpu", "lr": 0.02,')])
+    ('cfg = {"lr": 0.02,', 'cfg = {"device": "cpu", "lr": 0.02,'),
+    ('"env": "MoveToTarget"', '"env": "MoveToTarget", "device": "cpu"'),
+    ('"env": "TaskBandit"', '"env": "TaskBandit", "device": "cpu"'),
+    ('{"seed": 1, "lr": 5e-3,', '{"device": "cpu", "seed": 1, "lr": 5e-3,'),
+    ('MARWILTrainer({"input_path":',
+     'MARWILTrainer({"device": "cpu", "input_path":')])
 for _pkg, _root in ROOTS.items():
     for _name, _path in _FORWARDED.items():
         _mod = RLLIB.mods[_pkg]
@@ -112,7 +110,7 @@ def test_every_reference_test_is_twinned_written_out_or_pending():
     import test_rllib
 
     ref = [n for n in vars(test_rllib) if n.startswith("test_")]
-    assert len(ref) == 32 and len(TWINNED) + len(WRITTEN_OUT) == 25
+    assert len(ref) == 32 and len(TWINNED) + len(WRITTEN_OUT) == 32
     assert sorted(TWINNED + list(WRITTEN_OUT + PENDING)) == sorted(ref)
 
 

@@ -6,9 +6,11 @@ a checkpoint does), feeds both the same numpy-seeded inputs and compares.
 Tolerance is f32 on the CPU: 1e-5 absolute and relative (``TOL``) unless a
 test states and derives another. Integer outputs (greedy and epsilon-greedy
 actions) are equal. PPO's update runs on JAX's own permutations, passed in
-where the port draws its own from the policy's generator. A JAX
-``policy.pkl`` and ``flat_params.npy`` restore into the port and act as in
-JAX. ``get_weights()`` on another thread while a ``LearnerThread`` steps
+where the port draws its own from the policy's generator, and TD3's
+smoothing noise is the draw JAX's update takes from its key. A JAX
+``policy.pkl`` (of every trainer with one), ``marwil.pkl`` and
+``flat_params.npy`` restore into the port and act as in JAX.
+``get_weights()`` on another thread while a ``LearnerThread`` steps
 returns only trees that the sequential updates produced."""
 
 import pickle
@@ -595,3 +597,524 @@ def test_impala_refreshes_every_sampler_c17():
     port_calls = _broadcasts(timpala, "ray_tpu_torch")
     assert jax_calls == ["A", "A", "A"]
     assert port_calls == ["A", "B", "A", "B", "A", "B"]
+
+
+# -------------------------------------------- the second part's learners
+
+def close_leafwise(got, want, rel=TOL["rtol"]):
+    """Two trees leaf by leaf within ``rel`` of each leaf's largest
+    magnitude: an element of a gradient is a sum over the batch of terms
+    as large as the leaf's largest, so its rounding scales with those."""
+    got = jax.tree_util.tree_leaves(tree_map(
+        lambda v: v.detach().numpy(), got))
+    want = jax.tree_util.tree_leaves(jax.device_get(want))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= rel * np.abs(w).max()
+
+
+def adam_close(tstate, jstate, leafwise=False):
+    """The port's Adam state against optax's: the step count, both
+    moments (mu is (1 - b1) g after the first step: the gradient)."""
+    assert int(tstate["step"]) == int(jstate[0].count)
+    check = close_leafwise if leafwise else close
+    check(tstate["mu"], jstate[0].mu)
+    check(tstate["nu"], jstate[0].nu)
+
+
+def test_adam_matches_moments_to_parameters_by_key():
+    """C19. The JAX package's trees come with sorted keys (SAC's
+    ``log_alpha`` first), the port's in the order they were built: a step
+    on parameters carried in from JAX takes each moment and gradient of
+    the leaf with its key, as a step in the built order does."""
+    gen = torch.Generator().manual_seed(0)
+    built = {"pi": [(torch.randn(3, 2, generator=gen), torch.zeros(2))],
+             "log_alpha": torch.tensor(-1.0)}
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen), built)
+    opt = tpolicy.Adam(0.1)
+    state = opt.init(built)
+    want, wstate = opt.step(built, grads, state)
+    want, wstate = opt.step(want, grads, wstate)
+    carried_in = {"log_alpha": built["log_alpha"], "pi": built["pi"]}
+    got, gstate = opt.step(carried_in, {"pi": grads["pi"],
+                                        "log_alpha": grads["log_alpha"]},
+                           state)
+    got, gstate = opt.step(got, grads, gstate)
+    for tree_a, tree_b in ((got, want), (gstate["mu"], wstate["mu"]),
+                           (gstate["nu"], wstate["nu"])):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tpolicy.aligned(tree_a, built),
+                       tpolicy.aligned(tree_b, built)))
+
+
+def stats_close(tstats, jstats):
+    assert set(tstats) == set(jstats)
+    np.testing.assert_allclose([float(tstats[k]) for k in jstats],
+                               [float(v) for v in jstats.values()], **TOL)
+
+
+OBS2, ACT2 = 3, 2
+
+
+def continuous_batch(n: int, seed: int) -> SampleBatch:
+    rng = np.random.RandomState(seed)
+    return SampleBatch({
+        OBS: rng.randn(n, OBS2).astype(np.float32),
+        ACTIONS: rng.uniform(-1, 1, size=(n, ACT2)).astype(np.float32),
+        REWARDS: rng.randn(n).astype(np.float32),
+        DONES: (rng.rand(n) < 0.2).astype(np.float32),
+        NEXT_OBS: rng.randn(n, OBS2).astype(np.float32)})
+
+
+DDPG_CFG = {"hiddens": [16, 16], "lr": 0.01, "gamma": 0.9, "tau": 0.1,
+            "seed": 21}
+DDPG_CASES = {
+    "ddpg": {},
+    # the actor's update every other step: steps 1, 3, ... are skipped
+    "ddpg_delayed": {"policy_delay": 2},
+    # TD3 with smoothing noise wide enough that its clip bites
+    "td3": {"twin_q": True, "target_noise": 0.6, "target_noise_clip": 0.3,
+            "policy_delay": 2},
+}
+
+
+@pytest.mark.parametrize("case", DDPG_CASES)
+def test_ddpg_and_td3_updates_match(case):
+    """Four updates on carried weights (a target that differs from the
+    online tree): both critics, the actor, one Adam step over the whole
+    tree and the polyak step, against JAX's update on the same batches.
+    TD3's smoothing noise is the draw JAX's update takes from its key,
+    injected into the port's. On a step the delay skips, the actor's
+    loss is 0 and its gradient zeros, and Adam still moves it."""
+    from ray_tpu.rllib.agents import ddpg as jddpg
+    from ray_tpu_torch.rllib.agents import ddpg as tddpg
+
+    cfg = {**DDPG_CFG, **DDPG_CASES[case]}
+    jpol = jddpg.DDPGPolicy(OBS2, ACT2, cfg)
+    jpol.target = jax.tree_util.tree_map(lambda w: w * 0.9, jpol.params)
+    tpol = carried(jpol, tddpg.DDPGPolicy(OBS2, ACT2, {**cfg, **CPU}))
+    delay = cfg.get("policy_delay", 1)
+    keys = tpol._batch_keys
+    for step in range(4):
+        batch = continuous_batch(32, seed=30 + step)
+        key = jax.random.PRNGKey(40 + step)
+        noise = t(jax.random.normal(key, (32, ACT2)))
+        if cfg.get("target_noise"):
+            assert (np.abs(cfg["target_noise"] * noise.numpy())
+                    > cfg["target_noise_clip"]).any()
+        actor_before = tpol.params["actor"]
+        (jpol.params, jpol.target, jpol.opt_state, jpol._updates,
+         jstats) = jpol._update(jpol.params, jpol.target, jpol.opt_state,
+                                jpol._updates, jbatch(batch, keys), key)
+        (tpol.params, tpol.target, tpol.opt_state, tpol._updates,
+         tstats) = tpol.update(tpol.params, tpol.target, tpol.opt_state,
+                               tpol._updates, tbatch(batch, keys), noise)
+        assert tpol._updates == int(jpol._updates) == step + 1
+        stats_close(tstats, jstats)
+        close(tpol.params, jpol.params)
+        close(tpol.target, jpol.target)
+        adam_close(tpol.opt_state, jpol.opt_state)
+        if step % delay:
+            assert float(tstats["actor_loss"]) == 0.0
+            assert all(not torch.equal(a, b) for a, b in zip(
+                tree_leaves(actor_before), tree_leaves(tpol.params["actor"])))
+    # learn_on_batch draws its own noise and steps the counter
+    stats = tpol.learn_on_batch(continuous_batch(32, seed=50))
+    assert tpol._updates == 5 and set(stats) == {"critic_loss", "actor_loss"}
+
+
+def test_ddpg_actions_match():
+    from ray_tpu.rllib.agents import ddpg as jddpg
+    from ray_tpu_torch.rllib.agents import ddpg as tddpg
+
+    jpol = jddpg.DDPGPolicy(OBS2, ACT2, DDPG_CFG)
+    tpol = carried(jpol, tddpg.DDPGPolicy(OBS2, ACT2, {**DDPG_CFG, **CPU}))
+    obs = np.random.RandomState(51).randn(64, OBS2).astype(np.float32)
+    ta, _, _ = tpol.compute_actions(obs, explore=False)
+    ja, _, _ = jpol.compute_actions(obs, explore=False)
+    assert ta.dtype == ja.dtype == np.float32
+    np.testing.assert_allclose(ta, ja, **TOL)
+    # exploring: the greedy action plus N(0, 0.2) noise, kept in [-1, 1]
+    te, _, _ = tpol.compute_actions(obs, explore=True)
+    assert te.shape == ta.shape and (np.abs(te) <= 1.0).all()
+    assert 0.1 < np.std(te - ta) < 0.3
+
+
+SAC_CFG = {"hiddens": [16, 16], "lr": 0.01, "gamma": 0.9, "tau": 0.1,
+           "initial_alpha": 0.3, "seed": 22}
+
+
+@pytest.mark.parametrize("target_entropy", [None, 0.05],
+                         ids=["default_entropy", "given_entropy"])
+def test_sac_update_matches_including_log_alpha(target_entropy):
+    """Three updates: the critics, the actor and the temperature in one
+    Adam step (log_alpha a 0-dim leaf of the tree), the stats (alpha and
+    the entropy among them) and the polyak targets, against JAX's."""
+    from ray_tpu.rllib.agents import sac as jsac
+    from ray_tpu_torch.rllib.agents import sac as tsac
+
+    cfg = {**SAC_CFG, "target_entropy": target_entropy}
+    jpol = jsac.SACPolicy(OBS_DIM, N_ACT, cfg)
+    jpol.target = jax.tree_util.tree_map(lambda w: w * 0.9, jpol.target)
+    tpol = carried(jpol, tsac.SACPolicy(OBS_DIM, N_ACT, {**cfg, **CPU}))
+    assert tpol.params["log_alpha"].shape == ()
+    assert tpol.target_entropy == (target_entropy
+                                   or 0.98 * float(np.log(N_ACT)))
+    keys = tpol._batch_keys
+    for step in range(3):
+        batch = ppo_batch(32, seed=60 + step)
+        jpol.params, jpol.target, jpol.opt_state, jstats = jpol._update(
+            jpol.params, jpol.target, jpol.opt_state, jbatch(batch, keys))
+        tpol.params, tpol.target, tpol.opt_state, tstats = tpol.update(
+            tpol.params, tpol.target, tpol.opt_state, tbatch(batch, keys))
+        stats_close(tstats, jstats)
+        close(tpol.params, jpol.params)
+        close(tpol.target, jpol.target)
+        adam_close(tpol.opt_state, jpol.opt_state)
+    assert float(tpol.params["log_alpha"]) != float(np.log(0.3))
+    obs = np.random.RandomState(63).randn(128, OBS_DIM).astype(np.float32)
+    ta, _, _ = tpol.compute_actions(obs, explore=False)
+    ja, _, _ = jpol.compute_actions(obs, explore=False)
+    assert ta.dtype == ja.dtype and np.array_equal(ta, ja)
+    a, _, _ = tpol.compute_actions(obs, explore=True)
+    assert a.dtype == np.int32 and ((0 <= a) & (a < N_ACT)).all()
+
+
+def maml_batches(n_tasks: int, seed: int, rows: int = 32):
+    rng = np.random.RandomState(seed)
+    return [SampleBatch({
+        OBS: rng.randn(rows, 1).astype(np.float32),
+        ACTIONS: rng.randint(0, 4, size=rows),
+        REWARDS: (rng.rand(rows) < 0.3).astype(np.float32),
+        DONES: (rng.rand(rows) < 0.5).astype(np.float32)})
+        for _ in range(n_tasks)]
+
+
+MAML_CFG = {"hiddens": [16], "inner_lr": 3.0, "meta_lr": 0.03,
+            "rollout_fragment_length": 8, "seed": 23}
+
+
+@pytest.mark.parametrize("inner_steps", [1, 2])
+def test_maml_meta_gradient_and_adapt_match(inner_steps):
+    """At inner_lr 3.0 (the reference test's): ``adapt``'s weights, the
+    second-order meta-gradient over 4 tasks and the meta-step's Adam
+    update, against JAX's. A first-order meta-gradient (the query
+    gradient at the adapted weights) misses JAX's by far more than TOL,
+    so the second-order terms are what match."""
+    from ray_tpu.rllib.agents import maml as jmaml
+    from ray_tpu_torch.rllib.agents import maml as tmaml
+
+    cfg = {**MAML_CFG, "inner_steps": inner_steps}
+    jpol = jmaml.MAMLPolicy(1, 4, cfg)
+    tpol = carried(jpol, tmaml.MAMLPolicy(1, 4, {**cfg, **CPU}))
+    sups, qrys = maml_batches(4, 70), maml_batches(4, 71)
+    close(tpol.adapt(sups[0]), jpol.adapt(sups[0]))
+
+    adapt_fn = closure(jpol._meta_update, "adapt_fn")
+    surrogate = closure(jpol._meta_update, "surrogate_loss")
+    jsup = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
+                                  *[jpol._to_device(b) for b in sups])
+    jqry = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
+                                  *[jpol._to_device(b) for b in qrys])
+
+    def jmeta(params):
+        return jnp.mean(jax.vmap(lambda s, q: surrogate(
+            adapt_fn(params, s), q))(jsup, jqry))
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(jmeta))(jpol.params)
+    tsup, tqry = tpol._to_device(sups), tpol._to_device(qrys)
+    tloss, _, tgrads = tpolicy.value_and_grad(tpol.meta_loss, tpol.params,
+                                              tsup, tqry)
+    close(tloss, jloss)
+    close(tgrads, jgrads)
+
+    first = [torch.autograd.grad(
+        tmaml.surrogate_loss(a, q), tree_leaves(a))
+        for a, q in ((tree_map(lambda p: p.requires_grad_(True),
+                               tpol.adapt_fn(tpol.params, s)), q)
+                     for s, q in zip(tsup, tqry))]
+    first = [sum(g[i] for g in first) / len(first)
+             for i in range(len(first[0]))]
+    gap = max(float(np.abs(f.numpy() - np.asarray(j)).max())
+              for f, j in zip(first, jax.tree_util.tree_leaves(jgrads)))
+    assert gap > 100 * TOL["atol"]
+
+    jloss_step = jpol.meta_learn(sups, qrys)
+    tloss_step = tpol.meta_learn(sups, qrys)
+    np.testing.assert_allclose(tloss_step, jloss_step, **TOL)
+    close(tpol.params, jpol.params)
+    adam_close(tpol.opt_state, jpol.opt_state)
+
+
+def test_maml_actions_match():
+    from ray_tpu.rllib.agents import maml as jmaml
+    from ray_tpu_torch.rllib.agents import maml as tmaml
+
+    jpol = jmaml.MAMLPolicy(1, 4, MAML_CFG)
+    tpol = carried(jpol, tmaml.MAMLPolicy(1, 4, {**MAML_CFG, **CPU}))
+    obs = np.random.RandomState(72).randn(64, 1).astype(np.float32)
+    ja, _, _ = jpol.compute_actions(obs, explore=False)
+    ta, _, _ = tpol.compute_actions(obs, explore=False)
+    assert ta.dtype == ja.dtype and np.array_equal(ta, ja)
+    a, logp, v = tpol.compute_actions(obs, explore=True)
+    assert a.dtype == np.int32 and v.dtype == np.float32 and not v.any()
+    jlogp = jmodels.Categorical.logp(jmodels.apply_mlp(jpol.params, obs),
+                                     jnp.asarray(a))
+    np.testing.assert_allclose(logp, np.asarray(jlogp), **TOL)
+
+
+DYNA_CFG = {"model_hiddens": [16, 16], "model_lr": 0.01, "seed": 24}
+
+
+def test_dyna_model_step_and_imagined_batch_match():
+    """Three train steps of the dynamics model (state, reward and done
+    heads; the done head's loss is the stable sigmoid cross-entropy) and
+    an imagined batch from the trained model, its DONES bits thresholded
+    on the host as JAX's."""
+    from ray_tpu.rllib.agents import dyna as jdyna
+    from ray_tpu_torch.rllib.agents import dyna as tdyna
+
+    jm = jdyna._DynamicsModel(OBS_DIM, N_ACT, DYNA_CFG)
+    tm = tdyna._DynamicsModel(OBS_DIM, N_ACT, {**DYNA_CFG, **CPU})
+    tm.params = tpolicy.to_device(jax.device_get(jm.params),
+                                  torch.device("cpu"))
+    for step in range(3):
+        batch = ppo_batch(32, seed=80 + step)
+        # logits far from 0 on some rows: the cross-entropy's stable form
+        batch[DONES] = (np.random.RandomState(step).rand(32) < 0.5).astype(
+            np.float32)
+        np.testing.assert_allclose(tm.train_on_batch(batch),
+                                   jm.train_on_batch(batch), **TOL)
+        close(tm.params, jm.params)
+        adam_close(tm.opt_state, jm.opt_state)
+    rng = np.random.RandomState(83)
+    obs = rng.randn(256, OBS_DIM).astype(np.float32) * 2
+    actions = rng.randint(N_ACT, size=256)
+    jb, tb = jm.imagine_batch(obs, actions), tm.imagine_batch(obs, actions)
+    assert set(tb) == set(jb)
+    for k in (OBS, ACTIONS, REWARDS, NEXT_OBS):
+        assert tb[k].dtype == np.asarray(jb[k]).dtype
+        np.testing.assert_allclose(tb[k], jb[k], **TOL)
+    assert tb[DONES].dtype == jb[DONES].dtype
+    assert np.array_equal(tb[DONES], jb[DONES])
+    assert 0 < tb[DONES].sum() < 256
+
+
+QMIX_CFG = {"hiddens": [16], "mixing_embed": 8, "lr": 0.01, "gamma": 0.9,
+            "seed": 25, "epsilon_timesteps": 40, "final_epsilon": 0.1}
+
+
+def qmix_batch(n, n_agents, obs_dim, seed):
+    rng = np.random.RandomState(seed)
+    obs = rng.randn(n, n_agents, obs_dim).astype(np.float32)
+    nxt = rng.randn(n, n_agents, obs_dim).astype(np.float32)
+    return {"obs": obs, "state": obs.reshape(n, -1),
+            "actions": rng.randint(0, 2, size=(n, n_agents)),
+            "rewards": rng.randn(n).astype(np.float32),
+            "next_obs": nxt, "next_state": nxt.reshape(n, -1),
+            "dones": (rng.rand(n) < 0.3).astype(np.float32)}
+
+
+def carried_qmix(n_agents=2, obs_dim=4):
+    from ray_tpu.rllib.agents import qmix as jqmix
+    from ray_tpu_torch.rllib.agents import qmix as tqmix
+
+    cfg = dict(jqmix.QMIX_CONFIG, **QMIX_CFG)
+    jpol = jqmix.QMIXPolicy(n_agents, obs_dim, 2, n_agents * obs_dim, cfg)
+    tpol = tqmix.QMIXPolicy(n_agents, obs_dim, 2, n_agents * obs_dim,
+                            {**cfg, **CPU})
+    tpol.params = tpolicy.to_device(jax.device_get(jpol.params),
+                                    torch.device("cpu"))
+    tpol.target = tpolicy.to_device(jax.device_get(jpol.target),
+                                    torch.device("cpu"))
+    return jpol, tpol
+
+
+def test_qmix_mix_and_update_match():
+    """The mixer (abs'd hypernetwork weights, einsum, ELU) on random agent
+    Qs and states; then four updates with a hard target sync after the
+    second, against JAX's. The TD loss starts near 200, and the moments'
+    elements range over three decades within a leaf: they are held
+    within TOL of each leaf's largest (``close_leafwise``)."""
+    jpol, tpol = carried_qmix()
+    rng = np.random.RandomState(90)
+    chosen = rng.randn(16, 2).astype(np.float32) * 3
+    state = rng.randn(16, 8).astype(np.float32)
+    jmix = closure(jpol._update, "mix")
+    close(tpol.mix(tpol.params, t(chosen), t(state)),
+          jmix(jpol.params, chosen, state))
+    close(tpol.agent_qs(tpol.params, t(state.reshape(16, 2, 4))),
+          jpol._agent_qs(jpol.params, state.reshape(16, 2, 4)))
+    for step in range(4):
+        batch = qmix_batch(32, 2, 4, seed=91 + step)
+        jstats = jpol.learn_on_batch(batch)
+        tstats = tpol.learn_on_batch(batch)
+        stats_close(tstats, jstats)
+        close(tpol.params, jpol.params)
+        adam_close(tpol.opt_state, jpol.opt_state, leafwise=True)
+        if step == 1:
+            jpol.update_target()
+            tpol.update_target()
+            close(tpol.target, jpol.target)
+
+
+def test_qmix_epsilon_greedy_actions_are_jaxs_bit_for_bit():
+    jpol, tpol = carried_qmix()
+    obs = np.random.RandomState(95).randn(30, 2, 4).astype(np.float32)
+    runs = {}
+    for name, pol in (("jax", jpol), ("port", tpol)):
+        runs[name] = [pol.compute_actions(o) for o in obs]
+        runs[name] += [pol.compute_actions(o, explore=False) for o in obs]
+    for j, p in zip(runs["jax"], runs["port"]):
+        assert j.dtype == p.dtype and np.array_equal(j, p)
+    assert tpol.steps == jpol.steps == 60
+    assert tpol.epsilon == jpol.epsilon
+
+
+def marwil_data(tmp_path, n=300, seed=0):
+    """The reference test's expert rows: arm 2 seven times in ten."""
+    from ray_tpu_torch.rllib import JsonWriter
+
+    rng = np.random.RandomState(seed)
+    acts = np.array([2 if rng.rand() < 0.7 else rng.randint(4)
+                     for _ in range(n)])
+    w = JsonWriter(str(tmp_path))
+    w.write(SampleBatch({
+        OBS: rng.randn(n, 1).astype(np.float32),
+        ACTIONS: acts,
+        REWARDS: (acts == 2).astype(np.float32),
+        DONES: (rng.rand(n) < 0.3).astype(np.float32)}))
+    w.close()
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.0], ids=["marwil", "bc"])
+def test_marwil_update_and_step_match(beta, tmp_path):
+    """One update's loss terms and Adam step on carried weights, then a
+    step() of 3 updates on the rows both draw from their seeded
+    RandomState, against JAX's."""
+    from ray_tpu.rllib.agents import marwil as jmarwil
+    from ray_tpu_torch.rllib.agents import marwil as tmarwil
+
+    cfg = {"input_path": marwil_data(tmp_path), "obs_dim": 1,
+           "num_actions": 4, "beta": beta, "lr": 0.01, "hiddens": [16],
+           "updates_per_step": 3, "train_batch_size": 64, "seed": 26}
+    jt = jmarwil.MARWILTrainer(cfg)
+    tt = tmarwil.MARWILTrainer({**cfg, **CPU})
+    tt.params = tpolicy.to_device(jax.device_get(jt.params),
+                                  torch.device("cpu"))
+    idx = np.arange(0, 300, 5)
+    rows = jt._rows
+    jp, jstate, jbc, jvf = jt._update(
+        jt.params, jt.opt_state, jnp.asarray(rows[OBS][idx]),
+        jnp.asarray(rows[ACTIONS][idx]), jnp.asarray(rows["returns"][idx]))
+    tp, tstate, tstats = tt.update(tt.params, tt.opt_state, {
+        k: v[t(idx)] for k, v in tt._dev_rows.items()})
+    np.testing.assert_allclose([float(tstats["bc_loss"]),
+                                float(tstats["vf_loss"])],
+                               [float(jbc), float(jvf)], **TOL)
+    close(tp, jp)
+    adam_close(tstate, jstate)
+    jr, tr = jt.train(), tt.train()
+    assert jr["num_samples"] == tr["num_samples"] == 300
+    np.testing.assert_allclose([tr["bc_loss"], tr["vf_loss"]],
+                               [jr["bc_loss"], jr["vf_loss"]], **TOL)
+    close(tt.params, jt.params)
+    assert tt.compute_action(np.zeros(1)) == jt.compute_action(np.zeros(1))
+
+
+def test_marwil_weights_use_the_population_std():
+    """On 4 rows Bessel's correction would scale the normalized advantage
+    by sqrt(3/4): the port's loss is JAX's (population std) and not the
+    corrected one."""
+    from ray_tpu_torch.rllib.agents import marwil as tmarwil
+
+    rng = np.random.RandomState(27)
+    params = {"pi": mlp_tree(rng, [1, 8, 4]), "vf": mlp_tree(rng, [1, 8, 1])}
+    obs = rng.randn(4, 1).astype(np.float32)
+    acts = np.array([0, 2, 2, 3])
+    rets = np.array([0.0, 1.0, 1.0, 3.0], np.float32)
+
+    def jloss(std_ddof):
+        logp = jax.nn.log_softmax(jmodels.apply_mlp(params["pi"], obs))[
+            jnp.arange(4), acts]
+        adv = rets - jmodels.apply_mlp(params["vf"], obs)[..., 0]
+        w = jnp.exp(jnp.clip((adv - adv.mean())
+                             / (jnp.std(adv, ddof=std_ddof) + 1e-8), -5, 5))
+        return float(-jnp.mean(w * logp))
+
+    tp = tpolicy.to_device(params, torch.device("cpu"))
+    loss, stats = tmarwil.make_marwil_loss(1.0, 0.0)(
+        tp, {OBS: t(obs), ACTIONS: t(acts), "returns": t(rets)})
+    np.testing.assert_allclose(float(stats["bc_loss"]), jloss(0), **TOL)
+    assert abs(jloss(1) - jloss(0)) > 1e-3
+
+
+# (trainer, env): a JAX trainer's policy.pkl restores into the port's.
+RESTORED = {
+    "ddpg": ("DDPGTrainer", "MoveToTarget"),
+    "td3": ("TD3Trainer", "MoveToTarget"),
+    "sac": ("SACTrainer", "StatelessBandit"),
+    "maml": ("MAMLTrainer", "TaskBandit"),
+    "dyna": ("DynaTrainer", "StatelessBandit"),
+}
+
+
+@pytest.mark.parametrize("algo", RESTORED)
+def test_a_jax_policy_pkl_of_the_second_part_restores_into_the_port(
+        algo, tmp_path):
+    """A JAX trainer's checkpoint after 2 iterations restores into the
+    port's: the same greedy actions (continuous ones within TOL), the
+    target trees where the policy keeps them, the step counters."""
+    import ray_tpu.rllib as jrl
+    import ray_tpu_torch.rllib as trl
+
+    name, env = RESTORED[algo]
+    cfg = {"env": env, "num_workers": 0, "num_envs_per_worker": 4,
+           "rollout_fragment_length": 16, "learning_starts": 32,
+           "train_batch_size": 32, "num_train_batches_per_step": 2,
+           "meta_batch_size": 2, "hiddens": [16], "model_hiddens": [16],
+           "seed": 3}
+    ray_tpu.init(num_cpus=2)
+    jt = getattr(jrl, name)(cfg)
+    for _ in range(2):
+        jt.train()
+    path = jt.save(str(tmp_path / "jax"))
+    ray_tpu_torch.init(num_cpus=2)
+    tt = getattr(trl, name)({**cfg, **CPU})
+    tt.restore(path)
+    jpol, tpol = jt.get_policy(), tt.get_policy()
+    dim = jt.workers.local_worker().vec_env.observation_dim
+    obs = np.random.RandomState(28).randn(64, dim).astype(np.float32)
+    ja = jpol.compute_actions(obs, explore=False)[0]
+    ta = tpol.compute_actions(obs, explore=False)[0]
+    assert ta.dtype == ja.dtype
+    if algo in ("ddpg", "td3"):
+        np.testing.assert_allclose(ta, ja, **TOL)
+    else:
+        assert np.array_equal(ta, ja)
+    close(tpol.get_weights(), jpol.get_weights())
+    assert (tt._steps_sampled, tt._steps_trained) == \
+        (jt._steps_sampled, jt._steps_trained)
+    jt.cleanup()
+    tt.cleanup()
+
+
+def test_a_jax_marwil_pkl_restores_into_the_port(tmp_path):
+    from ray_tpu.rllib.agents import marwil as jmarwil
+    from ray_tpu_torch.rllib.agents import marwil as tmarwil
+
+    cfg = {"input_path": marwil_data(tmp_path / "data"), "obs_dim": 1,
+           "num_actions": 4, "hiddens": [16], "updates_per_step": 2}
+    jt = jmarwil.MARWILTrainer(cfg)
+    jt.train()
+    (tmp_path / "ckpt").mkdir()
+    jt.save_checkpoint(str(tmp_path / "ckpt"))
+    tt = tmarwil.MARWILTrainer({**cfg, **CPU})
+    tt.load_checkpoint(str(tmp_path / "ckpt"))
+    close(tt.params, jt.params)
+    obs = np.random.RandomState(29).randn(16, 1).astype(np.float32)
+    assert [tt.compute_action(o) for o in obs] == \
+        [jt.compute_action(o) for o in obs]

@@ -537,6 +537,31 @@ def test_port_reference_equals_jax_reference(case):
     assert grounds == wrounds
 
 
+@pytest.mark.parametrize("case", ["pure_chain", "random_dag", "locality"])
+def test_schedule_dag_collapsed_reference_equals_the_pass(case):
+    """The port's scalar mirror of the chain-collapsed entry gives
+    schedule_dag_collapsed's placements and rounds, bit for bit."""
+    locality = None
+    if case == "pure_chain":
+        demand = np.full((400, 1), 1000, np.int32)
+        parents = (np.arange(400, dtype=np.int32) - 1).reshape(-1, 1)
+        avail, chunk = uniform_cluster(4, cpu=2.0)[:, :1], 64
+    else:
+        demand, parents = random_dag(300, parent_window=8, seed=5)
+        avail, chunk = uniform_cluster(5, cpu=6), 64
+        if case == "locality":
+            locality = np.random.default_rng(5).integers(
+                -1, 5, size=300).astype(np.int32)
+    got, grounds = tk.schedule_dag_collapsed(
+        demand, parents, avail, tk.prng_key(5), locality=locality,
+        chunk=chunk, device="cpu")
+    want, wrounds = tr.schedule_dag_collapsed_reference(
+        demand, parents, avail, tk.prng_key(5), locality=locality,
+        chunk=chunk)
+    np.testing.assert_array_equal(got, want)
+    assert grounds == wrounds
+
+
 def test_dag_generators_equal_jax():
     for a, b in ((random_dag(500, seed=1), tdag.random_dag(500, seed=1)),
                  (fanout_dag(50), tdag.fanout_dag(50)),
