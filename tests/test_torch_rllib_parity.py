@@ -58,6 +58,17 @@ def close(got, want, **tol):
         np.testing.assert_allclose(g, np.asarray(w), **(tol or TOL))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The learners' tensors are small: one intra-op thread runs them as
+    fast alone, and does not stall on busy cores beside other test
+    workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(autouse=True)
 def _both_shut_down():
     yield
