@@ -11,8 +11,8 @@ it fails:
    every kernel of both paths from ray_tpu_torch/csrc into
    ray_tpu_torch/_build (one nvcc per source, all at once); ptxas's
    registers and spills of the bf16 flash kernels K3-K5 (tensor cores) at
-   D 64 and D 128, where any spill, a missing instantiation or a bf16
-   instantiation of the f32 FMA kernels fails the run;
+   D 16, 32, 64 and 128, where any spill, a missing instantiation or a
+   bf16 instantiation of the f32 FMA kernels fails the run;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (and GQA, ragged,
    tile-edge, split-edge, long-cache and small-page shapes), in f32 and
@@ -343,7 +343,27 @@ it fails:
    wall, and ES's one-observation env step on the card and the CPU; (d)
    after every cleanup(), rt.shutdown() and the end of every thread the
    phase started, this process's allocated memory within 1 MiB of its
-   level before the phase.
+   level before the phase;
+20. the repo's programs (ray_tpu_torch.examples and the soak's LM
+   workload) on a fresh init(num_gpus=1): (a) every example that
+   computes at its full size on the card, each one's wall: lm_serving (its
+   own checks: greedy outputs equal to generate() on the card, the stream
+   to its whole response, the speculative output to greedy; every decode
+   tick of its plain backend 1 + 2L K1 and L K6, at D 64 f32),
+   serve_model (replicas, the 80/20 canary, HTTP), parameter_server sync
+   and async (loss under 1.0), hyperparameter_search (6 learning rates
+   under ASHA), cartpole_ppo (30 iterations, the reward curve) and
+   pipelined_transformer (dp2 x pp2 x tp2 over 8 rank processes sharing
+   the card: every rank's losses equal and falling, its K3, K4, K5
+   launches a step exactly L/pp x microbatches); (b) lm_serving --smoke
+   (K6 at D 16), and K3-K5 at pipelined_transformer --smoke's shapes of a
+   rank (D 16, f32) against their plain versions; (c) soak.lm_serve for
+   SOAK_S seconds: its own pins and stall rule, its iterations and median,
+   K1 and K7 (at D 8) launched, and this process's allocated memory
+   after its serve.shutdown() within half of what its replica's build
+   added; (d) K6 and K7 at D 8, 16 and 32 and K3-K5 at D 16 and 32, in
+   f32 and bf16, against their plain versions (K7 equal to K6 bit for bit
+   on the same rows), each timed beside its bound and plain version.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -602,10 +622,14 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
               "flash_dkv_tc_kernel")   # K3, K4, K5 in bf16
 
 
+TC_HEAD_DIMS = set(attention.FLASH_HEAD_DIMS)   # each tensor-core K3-K5
+
+
 def check_tc_ptxas(log_text: str) -> None:
-    """The bf16 K3, K4 and K5 (tensor cores) at D 64 and D 128: registers
-    and spills as ptxas reports them; any spill, a missing instantiation,
-    or a bf16 instantiation of the FMA kernels fails the run."""
+    """The bf16 K3, K4 and K5 (tensor cores) at D 16, 32, 64 and 128:
+    registers and spills as ptxas reports them; any spill, a missing
+    instantiation, or a bf16 instantiation of the FMA kernels fails the
+    run."""
     seen = {kern: set() for kern in TC_KERNELS}
     for name, r in sorted(ptxas_report(log_text).items()):
         if re.search(r"flash_(fwd|dq|dkv)_kernelI13__nv_bfloat16", name):
@@ -624,9 +648,9 @@ def check_tc_ptxas(log_text: str) -> None:
             raise AssertionError(f"{what} spills: {r}")
         seen[m.group(1)].add(D)
     for kern, ds in seen.items():
-        if ds != {64, 128}:
+        if ds != TC_HEAD_DIMS:
             raise AssertionError(f"ptxas reported no {kern} at D "
-                                 f"{sorted({64, 128} - ds)}")
+                                 f"{sorted(TC_HEAD_DIMS - ds)}")
 
 
 # ------------------------------------------------- phase 2: kernel checks
@@ -8617,6 +8641,445 @@ def rllib_path(card: str) -> dict:
     return out
 
 
+# ------------------------------------------ phase 20: the repo's programs
+
+SOAK_S = 20.0            # (c) soak.lm_serve's duration
+# The small models' head dims beside the flagship's 64 and 128.
+P20_DECODE_DIMS = tuple(d for d in attention.DECODE_HEAD_DIMS if d < 64)
+P20_FLASH_DIMS = tuple(d for d in attention.FLASH_HEAD_DIMS if d < 64)
+
+
+class ExampleBackend(LMBackend):
+    """Phase 20's LMBackend, put in the place of the class an example or
+    the soak builds: the same backend, its contiguous engine under a
+    PathProbe, the device memory its build added and its head dim, in
+    ``ExampleBackend.live``. close() detaches the probe, so a closed
+    replica's engine is freed."""
+
+    live: list = []
+
+    def __init__(self, params, cfg, **kw):
+        mem0 = mem_now()
+        super().__init__(params, cfg, **kw)
+        self.probe = (None if kw.get("paged") else PathProbe(self.engine))
+        self.growth = mem_now() - mem0
+        self.head_dim, self.n_layers, self.kw = cfg.head_dim, \
+            cfg.n_layers, kw
+        ExampleBackend.live.append(self)
+
+    def close(self) -> None:
+        super().close()
+        for name in ("eng", "_prefill", "_decode"):
+            if self.probe is not None and hasattr(self.probe, name):
+                setattr(self.probe, name, None)
+
+    __ray_shutdown__ = close
+
+
+@contextlib.contextmanager
+def example_backend(module):
+    """``module.LMBackend`` is ExampleBackend for the block."""
+    ExampleBackend.live.clear()
+    saved = module.LMBackend
+    module.LMBackend = ExampleBackend
+    try:
+        yield ExampleBackend.live
+    finally:
+        module.LMBackend = saved
+
+
+def check_ticks(backend, what: str) -> int:
+    """Every decode tick of a contiguous engine without speculation
+    launches 1 plain and 2L residual K1 and L K6 and nothing else, every
+    prefill K1 2L + 1 times; returns the ticks."""
+    L = backend.n_layers
+    per_tick = {n: 0 for n in COUNTED}
+    per_tick.update(rms_norm=1, add_rms_norm=2 * L, decode_attention=L)
+    ticks = backend.probe.tick_launches
+    for i, got in enumerate(ticks):
+        if got != per_tick:
+            raise AssertionError(f"{what} tick {i}: launches {got}, "
+                                 f"expected {per_tick}")
+    check_launches_each(backend.probe.prefill_launches, L, f"{what} prefill")
+    if not ticks:
+        raise AssertionError(f"{what}: no decode tick ran")
+    return len(ticks)
+
+
+def p20_lm_serving(smoke: bool, card: str) -> float:
+    """lm_serving's main on the card, its two backends probed: its own
+    checks (greedy outputs equal generate() on the card, the stream equal
+    to its whole response, the speculative output equal to greedy), and
+    the plain backend's launches a tick."""
+    from ray_tpu_torch.examples import lm_serving
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with example_backend(lm_serving) as live:
+        outs = lm_serving.main(smoke=smoke, device=DEVICE)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    plain, spec = live
+    D, L = plain.head_dim, plain.n_layers
+    n = check_ticks(plain, "lm:v1")
+    if len(outs) != 6 or spec.kw.get("speculative_k") != 4:
+        raise AssertionError(f"lm_serving: {len(outs)} outputs, backends "
+                             f"{[b.kw for b in live]}")
+    if counts["decode_attention"] == 0:
+        raise AssertionError("lm_serving launched no decode_attention")
+    log(f"  lm_serving{' --smoke' if smoke else ''}: 6 greedy requests "
+        f"equal generate() on the card, sampled twice equal, stream equal, "
+        f"speculative equal to greedy; {n} ticks of lm:v1 at D {D}, f32, "
+        f"each {1 + 2 * L} K1 ({2 * L} residual) and {L} K6 ({L} layers); "
+        f"the run's launches {counts}; wall {wall:.2f} s [{card}]")
+    return wall
+
+
+def p20_rank_shapes() -> tuple:
+    """A rank's K3-K5 shapes in pipelined_transformer --smoke: batch 4
+    over dp 2 in 2 microbatches, the full sequence (sp 1), the heads over
+    tp 2: (B, T, H, KH, D)."""
+    from ray_tpu_torch.examples import pipelined_transformer as pt
+
+    cfg = pt.config(smoke=True)
+    tp, dp = pt.MESH["tp"], pt.MESH["dp"]
+    return (pt.BATCH // dp // pt.MICROBATCHES, cfg.max_seq_len,
+            cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim)
+
+
+def p20_examples(card: str) -> dict:
+    """(a) every example at its full size on the card, (b) lm_serving
+    --smoke (K6 at D 16) and K3-K5 at pipelined_transformer --smoke's
+    shapes of a rank (D 16)."""
+    from ray_tpu_torch.examples import (cartpole_ppo, hyperparameter_search,
+                                        parameter_server,
+                                        pipelined_transformer, serve_model)
+
+    walls = {"lm_serving": p20_lm_serving(False, card)}
+
+    t0 = time.perf_counter()
+    serve_model.main(smoke=False, device=DEVICE)
+    walls["serve_model"] = time.perf_counter() - t0
+    log(f"  serve_model: 2 replicas, the 80/20 canary and an HTTP POST, "
+        f"each call a tensor op on the card; wall {walls['serve_model']:.2f}"
+        f" s [{card}]")
+
+    for mode in ("sync", "async"):
+        t0 = time.perf_counter()
+        loss = parameter_server.main(use_async=mode == "async",
+                                     smoke=False, device=DEVICE)
+        walls[f"parameter_server {mode}"] = time.perf_counter() - t0
+        if not loss < 1.0:
+            raise AssertionError(f"parameter_server {mode}: loss {loss}")
+        log(f"  parameter_server {mode}: 50 rounds of 4 gradient tasks on "
+            f"the card, final loss {loss:.6f} (< 1.0); wall "
+            f"{walls[f'parameter_server {mode}']:.2f} s [{card}]")
+
+    t0 = time.perf_counter()
+    best = hyperparameter_search.main(smoke=False, device=DEVICE)
+    walls["hyperparameter_search"] = time.perf_counter() - t0
+    if best["lr"] not in (0.0001, 0.001, 0.01, 0.1, 0.5, 1.0):
+        raise AssertionError(f"hyperparameter_search: best {best}")
+    log(f"  hyperparameter_search: 6 learning rates under ASHA, the MLP on "
+        f"the card; best lr {best['lr']}; wall "
+        f"{walls['hyperparameter_search']:.2f} s [{card}]")
+
+    curve = []
+
+    class Curve(cartpole_ppo.PPOTrainer):
+        def train(self):
+            result = super().train()
+            curve.append(result["episode_reward_mean"])
+            return result
+
+    saved, cartpole_ppo.PPOTrainer = cartpole_ppo.PPOTrainer, Curve
+    t0 = time.perf_counter()
+    try:
+        result = cartpole_ppo.main(smoke=False, device=DEVICE)
+    finally:
+        cartpole_ppo.PPOTrainer = saved
+    walls["cartpole_ppo"] = time.perf_counter() - t0
+    if result["timesteps_total"] <= 0 or len(curve) != 30 or not all(
+            math.isfinite(r) for r in curve):
+        raise AssertionError(f"cartpole_ppo: {len(curve)} iterations, "
+                             f"{result['timesteps_total']} steps")
+    log(f"  cartpole_ppo: 30 iterations, the learner on the card; "
+        f"episode_reward_mean by iteration "
+        f"{[round(r, 1) for r in curve]}; {result['timesteps_total']} "
+        f"steps; wall {walls['cartpole_ppo']:.2f} s [{card}]")
+
+    out = pipelined_transformer.run(smoke=False, device=DEVICE)
+    walls["pipelined_transformer"] = out["wall_s"]
+    cfg = pipelined_transformer.config(smoke=False)
+    per_step = [cfg.n_layers // pipelined_transformer.MESH["pp"]
+                * pipelined_transformer.MICROBATCHES] * 3
+    ranks = out["ranks"]
+    losses = ranks[0]["losses"]
+    for i, r in enumerate(ranks):
+        if r["losses"] != losses:
+            raise AssertionError(f"pipelined_transformer: rank {i}'s losses "
+                                 f"{r['losses']} differ from rank 0's")
+        if any(got != per_step for got in r["launches"]):
+            raise AssertionError(
+                f"pipelined_transformer rank {i}: K3, K4, K5 launches a "
+                f"step {r['launches']}, expected {per_step}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"pipelined_transformer: losses {losses}")
+    step_s = float(np.median(ranks[0]["walls"][1:]))
+    log(f"  pipelined_transformer: dp2 x pp2 x tp2 over 8 rank processes "
+        f"sharing the card, D {cfg.head_dim} f32, 1 + 20 steps; losses "
+        f"{[round(x, 4) for x in losses]}; every rank's K3, K4, K5 a step "
+        f"{per_step} ({cfg.n_layers // pipelined_transformer.MESH['pp']} "
+        f"layers a stage x {pipelined_transformer.MICROBATCHES} "
+        f"microbatches); median step {step_s * 1e3:.1f} ms, "
+        f"{out['tokens_per_step'] / step_s:,.0f} tok/s; first step "
+        f"{ranks[0]['walls'][0]:.2f} s; wall with the world's start-up "
+        f"{out['wall_s']:.2f} s [{card}]")
+
+    log("phase 20 (b): the smoke sizes' head dims on the card")
+    walls["lm_serving --smoke"] = p20_lm_serving(True, card)
+    B, T, H, KH, D = p20_rank_shapes()
+    q, k, v, do = flash_inputs(B, T, H, KH, D, torch.float32, seed=2000)
+    check_flash(f"pipelined_transformer --smoke, a rank's microbatch "
+                f"B={B} T={T} H={H} KH={KH} D={D} causal f32",
+                q, k, v, do, True)
+    return walls
+
+
+def check_flash(what: str, q, k, v, do, causal: bool) -> None:
+    """K3, K4, K5 against their plain versions on one input: f32 out and
+    lse atol 1e-5, gradients 1e-4 (summation order); bf16 2e-2, the
+    gradients also within attention._flash_grad_bounds."""
+    f32 = q.dtype == torch.float32
+    tol = dict(atol=1e-5, rtol=1e-5) if f32 else dict(atol=2e-2, rtol=2e-2)
+    gtol = dict(atol=1e-4, rtol=1e-4) if f32 else tol
+    before = read_counts()
+    out, lse = attention.flash_forward(q, k, v, causal)
+    ref_out, ref_lse = attention._flash_forward_ref(q, k, v, causal)
+    check_close(f"flash_forward {what}", out, ref_out, **tol)
+    check_close(f"flash_forward lse {what}", lse, ref_lse, atol=1e-5,
+                rtol=1e-5)
+    args = (q, k, v, do, ref_lse, attention._flash_dsum(ref_out, do),
+            causal)
+    got = (attention.flash_backward_dq(*args),
+           *attention.flash_backward_dkv(*args))
+    want = (attention._flash_backward_dq_ref(*args),
+            *attention._flash_backward_dkv_ref(*args))
+    bounds = (attention._flash_grad_bounds(*args[:6], *want, causal=causal)
+              if not f32 else (None,) * 3)
+    for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+        if b is None:
+            check_close(f"flash_backward {name} {what}", g, w, **gtol)
+        else:
+            check_bound(f"flash_backward {name} {what}", g, w, b)
+    delta = count_delta(before)
+    if [delta[n] for n in ("flash_forward", "flash_backward_dq",
+                           "flash_backward_dkv")] != [1, 1, 1]:
+        raise AssertionError(f"{what}: K3-K5 launches {delta}")
+
+
+def p20_soak(card: str) -> dict:
+    """(c) soak.lm_serve on the card for SOAK_S seconds: its own pins
+    (every whole-response and streamed output equal to generate(), the
+    seeded sample equal every iteration) and stall rule, the launches of
+    K1 and K7 (the paged engine's draft-less ticks) at D 8, the median
+    iteration, and this process's allocated memory back after its
+    serve.shutdown() within half of what its replica's build added (phase
+    10's bound)."""
+    from ray_tpu_torch.scripts import soak
+
+    log(f"phase 20 (c): soak.lm_serve for {SOAK_S:g} s on the card")
+    mem0 = mem_now()
+    reset_counts()
+    with example_backend(serve) as live:
+        iters = soak.lm_serve(SOAK_S, device=DEVICE)
+    counts = read_counts()
+    (backend,) = live
+    D, kw, growth = backend.head_dim, backend.kw, backend.growth
+    live.clear()        # the closed backend still holds its parameters
+    del backend
+    mem1 = mem_now()
+    times = soak.LAST_TIMES["lm_serve"]
+    med = float(np.median(times))
+    if D != 8 or not kw.get("paged"):
+        raise AssertionError(f"soak backend: D {D}, {kw}")
+    for name in ("rms_norm", "add_rms_norm", "paged_decode_attention"):
+        if counts[name] == 0:
+            raise AssertionError(f"soak: no {name} launch: {counts}")
+    if mem1 - mem0 > growth // 2:
+        raise AssertionError(
+            f"soak: {mem1 - mem0} bytes more after serve.shutdown() than "
+            f"before, over half the replica's {growth}")
+    log(f"  soak.lm_serve: {iters} iterations in {SOAK_S:g} s, every one's "
+        f"3 whole-response, 1 streamed and 1 sampled outputs pinned; median "
+        f"iteration {med * 1e3:.1f} ms, longest {max(times) * 1e3:.1f} ms "
+        f"(no stall under the soak's rule); the paged speculative engine at "
+        f"D {D} f32: K7 {counts['paged_decode_attention']}, "
+        f"K1 {counts['rms_norm']} plain + {counts['add_rms_norm']} "
+        f"residual, K6 {counts['decode_attention']}; "
+        f"allocated memory {(mem1 - mem0) / 2**20:+.3f} MiB after "
+        f"serve.shutdown() (the replica's build +{growth / 2**20:.3f} MiB) "
+        f"[{card}]")
+    return {"iters": iters, "median_ms": med * 1e3}
+
+
+def p20_decode_inputs(B, H, KH, D, S, lens, dtype, seed):
+    """K6's inputs and K7's on the same rows: a pool of 16-row pages
+    (the soak's page size) holding each sequence's rows in shuffled
+    pages, and the same rows laid out contiguously."""
+    ps = 16
+    P = S // ps
+    q, kp, vp, table, ln = paged_inputs(B + 1, H, KH, D, ps, P,
+                                        list(lens) + [0], dtype, seed)
+    q, table, ln = q[:B].contiguous(), table[:B], ln[:B]
+    kc = paged_attention.paged_gather(kp, table).contiguous()
+    vc = paged_attention.paged_gather(vp, table).contiguous()
+    return q, kc, vc, ln, kp, vp, table
+
+
+def p20_kernels(card: str) -> None:
+    """(d) K6 and K7 at D 8, 16, 32 and K3-K5 at D 16, 32 against their
+    plain versions, in f32 and bf16; K7 equal to K6 bit for bit on the
+    same rows; each timed beside its bound (bytes over 3.35 TB/s for
+    K6/K7, operations over the dtype's peak for K3-K5: 989 TFLOP/s bf16,
+    67 f32) and its plain version."""
+    log("phase 20 (d): the small head dims' kernels against their plain "
+        "versions, and their times")
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = (("the programs' shape", 8, 4, 2, 128, [0, 15, 16, 63, 64,
+                                                      100, 126, 127]),
+              ("~600 rows", 8, 16, 16, 1024, [600 + i for i in range(8)]))
+    for D in P20_DECODE_DIMS:
+        for tag, B, H, KH, S, lens in shapes:
+            for dtype in (f32, bf16):
+                q, kc, vc, ln, kp, vp, table = p20_decode_inputs(
+                    B, H, KH, D, S, lens, dtype, seed=3000 + D)
+                tol = (dict(atol=2e-5, rtol=0.0) if dtype == f32
+                       else dict(atol=2e-2, rtol=2e-2))
+                what = (f"D={D} {tag} B={B} H={H} KH={KH} "
+                        f"{str(dtype)[6:]}, "
+                        f"{attention.decode_splits(B * KH)} splits")
+                with torch.inference_mode():
+                    k6 = attention.decode_attention(q, kc, vc, ln)
+                    check_close(f"decode_attention {what}", k6,
+                                attention._decode_attention_ref(q, kc, vc,
+                                                                ln), **tol)
+                    k7 = paged_attention.paged_decode_attention(
+                        q, kp, vp, table, ln)
+                    check_close(f"paged_decode_attention {what}", k7,
+                                paged_attention._paged_decode_ref(
+                                    q, kp, vp, table, ln), **tol)
+                    if not torch.equal(k7, k6):
+                        raise AssertionError(f"{what}: K7 != K6 bits")
+                if tag == shapes[0][0] and dtype == bf16:
+                    continue   # the programs run f32: time it there
+                if tag != shapes[0][0] and dtype == f32:
+                    continue   # the ~600-row shape: time bf16
+                live = sum(L + 1 for L in lens)
+                es = q.element_size()
+                k6_bytes = 2 * live * KH * D * es + 2 * B * H * D * es + 4 * B
+                pages = sum(-(-(L + 1) // 16) for L in lens)
+                sets = [p20_decode_inputs(B, H, KH, D, S, lens, dtype,
+                                          seed=3100 + i)
+                        for i in range(n_copies(2 * live * KH * D * es))]
+                with torch.inference_mode():
+                    t = {
+                        "K6": device_ms(
+                            "decode_attention kernel", lambda *a:
+                            attention.decode_attention(*a[:4]), sets, 100,
+                            sleep_cycles=200_000_000),
+                        "K6 plain": device_ms(
+                            "decode_attention plain", lambda *a:
+                            attention._decode_attention_ref(*a[:4]), sets,
+                            20, sleep_cycles=200_000_000),
+                        "K7": device_ms(
+                            "paged_decode_attention kernel", lambda *a:
+                            paged_attention.paged_decode_attention(
+                                a[0], *a[4:], a[3]), sets, 100,
+                            sleep_cycles=200_000_000),
+                        "K7 plain": device_ms(
+                            "paged_decode_attention plain", lambda *a:
+                            paged_attention._paged_decode_ref(
+                                a[0], *a[4:], a[3]), sets, 20,
+                            sleep_cycles=200_000_000)}
+                b6 = bound(k6_bytes, 4 * live * H * D, dtype)
+                b7 = bound(k6_bytes + 4 * pages, 4 * live * H * D, dtype)
+                log(f"  time {what}, lengths {lens[0]}-{lens[-1]}: K6 "
+                    f"{t['K6'] * 1e3:.2f} us (plain {t['K6 plain'] * 1e3:.2f}"
+                    f"), bound {b6['bound_ms'] * 1e3:.3f} us "
+                    f"({b6['bound_by']}); K7 {t['K7'] * 1e3:.2f} us (plain "
+                    f"{t['K7 plain'] * 1e3:.2f}), bound "
+                    f"{b7['bound_ms'] * 1e3:.3f} us ({b7['bound_by']}) "
+                    f"[{card}]")
+                del sets
+    for D in P20_FLASH_DIMS:
+        for dtype in (f32, bf16):
+            for B, T, H, KH, causal in ((1, 64, 2, 1, True),
+                                        (2, 129, 4, 2, False),
+                                        (1, 300, 4, 1, True)):
+                q, k, v, do = flash_inputs(B, T, H, KH, D, dtype,
+                                           seed=3200 + D + T)
+                check_flash(f"B={B} T={T} H={H} KH={KH} D={D} "
+                            f"{'causal' if causal else 'full'} "
+                            f"{str(dtype)[6:]}", q, k, v, do, causal)
+            p20_flash_times(D, dtype, card)
+    torch.cuda.empty_cache()
+
+
+def p20_flash_times(D: int, dtype, card: str) -> None:
+    """K3, K4, K5 at B 4, T = S 1024, H 8, KH 4, causal: each kernel and
+    its plain version beside its bound (K3 two causal products, K4 three,
+    K5 four; each input read and each output written once)."""
+    B, T, H, KH = 4, 1024, 8, 4
+    es = torch.tensor([], dtype=dtype).element_size()
+    one, kv, stat = B * T * H * D * es, B * T * KH * D * es, B * H * T * 4
+    mm = 2 * B * H * D * (T * (T + 1) // 2)
+    sets = []
+    for i in range(n_copies(2 * one + 2 * kv)):
+        q, k, v, do = flash_inputs(B, T, H, KH, D, dtype, seed=3300 + i)
+        o, lse = attention.flash_forward(q, k, v, True)
+        sets.append((q, k, v, do, lse, attention._flash_dsum(o, do)))
+    rows = []
+    for name, fn, ref, nbytes, ops in (
+            ("K3", lambda *a: attention.flash_forward(*a[:3], True),
+             lambda *a: attention._flash_forward_ref(*a[:3], True),
+             2 * one + 2 * kv + stat, 2 * mm),
+            ("K4", lambda *a: attention.flash_backward_dq(*a, True),
+             lambda *a: attention._flash_backward_dq_ref(*a, True),
+             3 * one + 2 * kv + 2 * stat, 3 * mm),
+            ("K5", lambda *a: attention.flash_backward_dkv(*a, True),
+             lambda *a: attention._flash_backward_dkv_ref(*a, True),
+             2 * one + 4 * kv + 2 * stat, 4 * mm)):
+        ms = device_ms(f"{name} kernel", fn, sets, 20,
+                       sleep_cycles=300_000_000)
+        plain = device_ms(f"{name} plain", ref, sets, 3,
+                          sleep_cycles=300_000_000)
+        b = bound(nbytes, ops, dtype)
+        rows.append(f"{name} {ms * 1e3:.2f} us (plain {plain * 1e3:.2f}, "
+                    f"bound {b['bound_ms'] * 1e3:.3f} {b['bound_by']})")
+    log(f"  time B={B} T=S={T} H={H} KH={KH} D={D} causal "
+        f"{str(dtype)[6:]}: " + "; ".join(rows) + f" [{card}]")
+
+
+def programs_path(card: str) -> dict:
+    """Phase 20: the repo's programs (ray_tpu_torch.examples, the soak's
+    LM workload) on a fresh local runtime, then the small head dims'
+    kernels."""
+    t_phase = time.perf_counter()
+    log(f"phase 20 (a): the examples at their full size on {card}")
+    rt.init(num_cpus=8, num_gpus=1)
+    try:
+        walls = p20_examples(card)
+        soak = p20_soak(card)
+    finally:
+        rt.shutdown()
+    p20_kernels(card)
+    log(f"phase 20: walls {json.dumps({k: round(v, 3) for k, v in walls.items()})};"
+        f" phase 20 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"walls": walls, "soak": soak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script "
@@ -8671,6 +9134,7 @@ def main() -> int:
     library_path(params, cfg, main, tp["one_process"], card)
     streaming_path(card)
     rllib_path(card)
+    programs_path(card)
 
     # (kernel, its source, the TPU kernel it replaces, the path it runs on)
     table = {

@@ -95,7 +95,8 @@ extern "C" long long decode_attention_smem_bytes(int G, int D, int dtype) {
 // dims contiguous and batch/row strides (in elements) given. lengths: [B]
 // int32 on the device. partials: B*KH*n_split*(G*D + 2*G) floats of scratch,
 // any contents; tickets: B*KH ints, 0 before the launch and 0 after it.
-// 1 <= n_split <= 64. dtype: 0 = float32, 1 = bfloat16; D in {64, 128}.
+// 1 <= n_split <= 64. dtype: 0 = float32, 1 = bfloat16; D in {8, 16, 32,
+// 64, 128}.
 // Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_forward(
     const void* q, const void* k, const void* v, const void* lengths,
@@ -112,10 +113,17 @@ extern "C" int decode_attention_forward(
 #define RT_DECODE(T, DD)                                                    \
   return (int)launch<T, DD>(q, k, v, len, out, part, tick, B, S, KH, G,     \
                             n_split, k_sb, k_ss, v_sb, v_ss, scale, s)
-  if (dtype == 0 && D == 64) RT_DECODE(float, 64);
-  if (dtype == 0 && D == 128) RT_DECODE(float, 128);
-  if (dtype == 1 && D == 64) RT_DECODE(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) RT_DECODE(__nv_bfloat16, 128);
+#define RT_DECODE_D(DD)                                                     \
+  if (D == DD) {                                                            \
+    if (dtype == 0) RT_DECODE(float, DD);                                   \
+    if (dtype == 1) RT_DECODE(__nv_bfloat16, DD);                           \
+  }
+  RT_DECODE_D(8)
+  RT_DECODE_D(16)
+  RT_DECODE_D(32)
+  RT_DECODE_D(64)
+  RT_DECODE_D(128)
+#undef RT_DECODE_D
 #undef RT_DECODE
   return (int)cudaErrorInvalidValue;
 }

@@ -27,6 +27,10 @@
 // are summed over the G query heads of a group in f32 inside K5, where the
 // JAX package casts each head's result to bf16 and sums those.
 //
+// Head dims: 16, 32, 64 and 128, each in f32 and bf16. The tile shapes
+// below were chosen and measured at 64 and 128; 16 and 32, the head dims of
+// the small models the examples and soak scripts run, take 128's.
+//
 // K3, what bounds it on this card: operations. At the training path's shape
 // (B 8, T = S 2048, H = KH 16, D 64, causal) each of its two products
 // (S = Q K^T, then O = P V) is 2*B*H*D*T*(T+1)/2 = 34.4 GFLOP: 69.5 us at
@@ -332,7 +336,11 @@ constexpr int TC_MIN_BLOCKS = 2;   // blocks per SM the registers must allow
 // in registers for the whole kv loop (else ldmatrix reloads them for every
 // tile). At D 64 with 8 warps, 2 blocks per SM leave 128 registers a
 // thread, and Q's 16 fragment registers would spill. At D 128 a third
-// stage would leave shared memory for one block per SM.
+// stage would leave shared memory for one block per SM. D 16 and 32 (the
+// small models of the examples and soaks) take D 128's choices, untuned:
+// 4 warps, so that a 64-row tile of 2 or 4 16-byte chunks a row is whole
+// chunks per thread for tile_async, and Q's one or two fragments stay in
+// registers.
 template <int D>
 __host__ __device__ constexpr int tc_warps() { return D == 64 ? 8 : 4; }
 template <int D>
@@ -814,6 +822,8 @@ constexpr int BWD_TILE = 64;   // kv rows per K4 tile, q rows per K5 tile
 // registers. K5's dk and dv take D registers a thread: 8-warp blocks (128
 // registers) spill at D 64, and at 2 blocks per SM (a cap of 255) it ran
 // 15% slower than at 3 (168); 64-column passes spill at both head dims.
+// D 16 and 32 take D 128's choices, untuned (4-warp blocks keep
+// tile_async's 64-row tiles whole chunks per thread).
 template <int D>
 __host__ __device__ constexpr int dq_warps() { return D == 64 ? 8 : 4; }
 template <int D>
@@ -1388,48 +1398,50 @@ bool valid_shape(int B, int T, int S, int H, int KH) {
 }  // namespace
 
 // Dispatch over dtype (0 = float32 to F32, 1 = bfloat16 to BF16), D in
-// {64, 128} and causal in {0, 1}; anything else returns
+// {16, 32, 64, 128} and causal in {0, 1}; anything else returns
 // cudaErrorInvalidValue. The dtype alone picks the route.
+#define RT_FLASH_AT(F32, BF16, DD, ...)                                      \
+  if (D == DD) {                                                             \
+    if (dtype == 0 && causal) return (int)F32<float, DD, true>(__VA_ARGS__); \
+    if (dtype == 0 && !causal)                                               \
+      return (int)F32<float, DD, false>(__VA_ARGS__);                        \
+    if (dtype == 1 && causal)                                                \
+      return (int)BF16<__nv_bfloat16, DD, true>(__VA_ARGS__);                \
+    if (dtype == 1 && !causal)                                               \
+      return (int)BF16<__nv_bfloat16, DD, false>(__VA_ARGS__);               \
+  }
 #define RT_FLASH_DISPATCH2(F32, BF16, ...)                                   \
   do {                                                                       \
-    if (dtype == 0 && D == 64 && causal)                                     \
-      return (int)F32<float, 64, true>(__VA_ARGS__);                         \
-    if (dtype == 0 && D == 64 && !causal)                                    \
-      return (int)F32<float, 64, false>(__VA_ARGS__);                        \
-    if (dtype == 0 && D == 128 && causal)                                    \
-      return (int)F32<float, 128, true>(__VA_ARGS__);                        \
-    if (dtype == 0 && D == 128 && !causal)                                   \
-      return (int)F32<float, 128, false>(__VA_ARGS__);                       \
-    if (dtype == 1 && D == 64 && causal)                                     \
-      return (int)BF16<__nv_bfloat16, 64, true>(__VA_ARGS__);                \
-    if (dtype == 1 && D == 64 && !causal)                                    \
-      return (int)BF16<__nv_bfloat16, 64, false>(__VA_ARGS__);               \
-    if (dtype == 1 && D == 128 && causal)                                    \
-      return (int)BF16<__nv_bfloat16, 128, true>(__VA_ARGS__);               \
-    if (dtype == 1 && D == 128 && !causal)                                   \
-      return (int)BF16<__nv_bfloat16, 128, false>(__VA_ARGS__);              \
+    RT_FLASH_AT(F32, BF16, 16, __VA_ARGS__)                                  \
+    RT_FLASH_AT(F32, BF16, 32, __VA_ARGS__)                                  \
+    RT_FLASH_AT(F32, BF16, 64, __VA_ARGS__)                                  \
+    RT_FLASH_AT(F32, BF16, 128, __VA_ARGS__)                                 \
     return (int)cudaErrorInvalidValue;                                       \
   } while (0)
 
 // Shared memory one block of each kernel needs, in bytes (which: 0 = K3,
 // 1 = K4, 2 = K5; dtype as in the launchers), for the wrapper's check
-// against the card's 227 KB.
-extern "C" long long flash_smem_bytes(int which, int D, int dtype) {
-  const bool d64 = D == 64;
+// against the card's 227 KB; -1 for a D the kernels are not built for.
+template <int D>
+long long smem_bytes_at(int which, int dtype) {
   if (dtype == 1)
-    return (long long)(which == 0 ? (d64 ? fwd_tc_smem_bytes<64>()
-                                         : fwd_tc_smem_bytes<128>())
-                       : which == 1 ? (d64 ? dq_tc_smem_bytes<64>()
-                                           : dq_tc_smem_bytes<128>())
-                                    : (d64 ? dkv_tc_smem_bytes<64>()
-                                           : dkv_tc_smem_bytes<128>()));
-  const size_t f = which == 0 ? (d64 ? fwd_smem_floats<64>()
-                                     : fwd_smem_floats<128>())
-                 : which == 1 ? (d64 ? dq_smem_floats<64>()
-                                     : dq_smem_floats<128>())
-                              : (d64 ? dkv_smem_floats<64>()
-                                     : dkv_smem_floats<128>());
-  return (long long)(f * sizeof(float));
+    return (long long)(which == 0   ? fwd_tc_smem_bytes<D>()
+                       : which == 1 ? dq_tc_smem_bytes<D>()
+                                    : dkv_tc_smem_bytes<D>());
+  return (long long)((which == 0   ? fwd_smem_floats<D>()
+                      : which == 1 ? dq_smem_floats<D>()
+                                   : dkv_smem_floats<D>()) *
+                     sizeof(float));
+}
+
+extern "C" long long flash_smem_bytes(int which, int D, int dtype) {
+  switch (D) {
+    case 16: return smem_bytes_at<16>(which, dtype);
+    case 32: return smem_bytes_at<32>(which, dtype);
+    case 64: return smem_bytes_at<64>(which, dtype);
+    case 128: return smem_bytes_at<128>(which, dtype);
+  }
+  return -1;
 }
 
 // strides: 3 per tensor (batch, row, head), in elements, in the order

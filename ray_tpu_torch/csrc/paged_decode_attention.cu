@@ -120,7 +120,7 @@ extern "C" long long paged_decode_attention_smem_bytes(int G, int D,
 // [B] int32. partials: B*KH*n_split*(G*D + 2*G) floats of scratch, any
 // contents; tickets: B*KH ints, 0 before the launch and 0 after it. All on
 // the device. 1 <= n_split <= 64. dtype: 0 = float32, 1 = bfloat16; D in
-// {64, 128}. Returns cudaGetLastError() after the launch.
+// {8, 16, 32, 64, 128}. Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode_attention_forward(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* lengths, void* out, void* partials,
@@ -139,10 +139,17 @@ extern "C" int paged_decode_attention_forward(
   return (int)launch<T, DD>(q, k_pages, v_pages, tbl, len, out, part, tick, \
                             B, P, ps, num_pages, KH, G, n_split, t_sb, k_ps, \
                             k_rs, v_ps, v_rs, scale, s)
-  if (dtype == 0 && D == 64) RT_PAGED(float, 64);
-  if (dtype == 0 && D == 128) RT_PAGED(float, 128);
-  if (dtype == 1 && D == 64) RT_PAGED(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) RT_PAGED(__nv_bfloat16, 128);
+#define RT_PAGED_D(DD)                                                      \
+  if (D == DD) {                                                            \
+    if (dtype == 0) RT_PAGED(float, DD);                                    \
+    if (dtype == 1) RT_PAGED(__nv_bfloat16, DD);                            \
+  }
+  RT_PAGED_D(8)
+  RT_PAGED_D(16)
+  RT_PAGED_D(32)
+  RT_PAGED_D(64)
+  RT_PAGED_D(128)
+#undef RT_PAGED_D
 #undef RT_PAGED
   return (int)cudaErrorInvalidValue;
 }

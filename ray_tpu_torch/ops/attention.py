@@ -28,6 +28,12 @@ from .._kernels import count_launch
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The head dims the kernels are built for (csrc/*.cu); each wrapper raises
+# on any other. The decode kernels K6 and K7 take the small models' 8-32
+# (the soak's d_model 32 over 4 heads is D 8), the flash kernels K3-K5
+# 16-32 beside the flagship's 64 and 128.
+DECODE_HEAD_DIMS = (8, 16, 32, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
 _SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LL = ctypes.POINTER(ctypes.c_longlong)
@@ -201,9 +207,9 @@ def _check_decode_args(q, k, v, lengths) -> None:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"lengths {tuple(lengths.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"decode_attention kernel takes D in (64, 128), "
-                         f"got {D}")
+    if D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes D in "
+                         f"{DECODE_HEAD_DIMS}, got {D}")
     if H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of kv heads {KH}")
     if not (q.is_contiguous() and lengths.is_contiguous()):
@@ -449,9 +455,9 @@ def _check_flash_args(q, k, v, do=None, lse=None, dsum=None) -> None:
     if k.shape[0] != B or k.shape[3] != D or T == 0 or S == 0 or B == 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"flash attention kernels take D in (64, 128), "
-                         f"got {D}")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take D in "
+                         f"{FLASH_HEAD_DIMS}, got {D}")
     if KH == 0 or H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of kv heads {KH}")
     ts = [q, k, v] + ([do] if do is not None else [])
@@ -581,7 +587,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention, q [B, T, H, D] against k/v [B, S, KH, D] ->
     [B, T, H, D], differentiable in q, k and v. On the card the forward is
     kernel K3 and the backward kernels K4 (dq) and K5 (dk, dv); on the CPU
-    their plain versions. D in (64, 128), any T, S and G = H // KH.
+    their plain versions. D in ``FLASH_HEAD_DIMS`` (16, 32, 64, 128) on
+    the card, any T, S and G = H // KH.
 
     The JAX package's ``block_q`` and ``block_k`` are Pallas tiling knobs
     that no caller passes; the kernels here choose their own tiles, so the

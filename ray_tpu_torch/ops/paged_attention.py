@@ -30,7 +30,7 @@ import torch
 
 from .._kernels import count_launch
 from .attention import (  # noqa: F401 (unsharded_operands: JAX's name)
-    _DTYPES, _SMEM_LIMIT, _check_unsharded, _decode_split,
+    DECODE_HEAD_DIMS, _DTYPES, _SMEM_LIMIT, _check_unsharded, _decode_split,
     masked_gqa_attention, unsharded_operands,
 )
 
@@ -108,9 +108,9 @@ def _check_paged_args(q, k_pages, v_pages, page_table, lengths) -> None:
             f"shape mismatch: q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}, page_table {tuple(page_table.shape)}, "
             f"lengths {tuple(lengths.shape)}")
-    if D not in (64, 128):
+    if D not in DECODE_HEAD_DIMS:
         raise ValueError(f"paged_decode_attention kernel takes D in "
-                         f"(64, 128), got {D}")
+                         f"{DECODE_HEAD_DIMS}, got {D}")
     if H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of kv heads {KH}")
     ts = (q, k_pages, v_pages, page_table, lengths)

@@ -185,6 +185,12 @@ def _split_edges(B, KH, S, count):
     (4, 32, 4, 128, 1024, [0, 511, 64, 1023]),   # GQA G = 8: 32 splits
     (2, 16, 16, 64, 8192, [8191, 5000]),   # long cache: 16 splits
     (2, 8, 8, 64, 300, [299, 350]),      # S - 1, and past it (clamped)
+    # The small models' head dims: the soak's D 8 (G 2), the examples'
+    # D 16, and D 32, at tile and split edges.
+    (3, 4, 2, 8, 130, [0, 64, 129]),
+    (2, 8, 2, 16, 70, [69, 5]),
+    (4, 4, 2, 32, 300, [299, 63, 64, 0]),
+    (8, 16, 16, 16, 2048, _split_edges(8, 16, 2048, 8)),   # 4 splits
 ])
 def test_decode_kernel_matches_plain_f32(dev, B, H, KH, D, S, lengths):
     """K6 against its plain version (atol 2e-5: summation order), split
@@ -298,6 +304,15 @@ def test_xent_kernel_strided_rows_and_out_of_range_label(dev):
     (1, 65, 65, 4, 2, 128, False),
     (1, 300, 100, 4, 2, 64, True),
     (1, 200, 70, 8, 2, 128, True),
+    # The small models' head dims (D 16: a rank's microbatch of the
+    # pipelined example; D 32), at the 64-row tile edges all their kernels
+    # take.
+    (1, 64, 64, 2, 1, 16, True),
+    (2, 65, 65, 4, 2, 16, False),
+    (1, 300, 100, 4, 2, 16, True),
+    (1, 100, 130, 4, 2, 32, True),
+    (1, 129, 129, 8, 2, 32, False),
+    (1, 63, 63, 4, 1, 32, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(dev, B, T, S, H, KH, D, causal, dtype):
@@ -372,7 +387,7 @@ def test_flash_forward_is_deterministic(dev, dtype):
         assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_is_deterministic(dev, dtype, D):
     """Two launches of K4 and of K5 on the same inputs give the same bits:
@@ -452,6 +467,56 @@ def test_rms_norm_on_card_is_differentiable_and_decode_refuses_grad(dev):
         assert attention.decode_attention(q, k, k, lens).shape == (1, 2, 64)
 
 
+@pytest.mark.parametrize("D", [8, 16, 32])
+def test_decode_kernel_small_head_dims_bf16(dev, D):
+    """K6 in bf16 at the small models' head dims against its plain
+    version (atol = rtol = 2e-2: the plain version rounds scores to bf16),
+    over 4 splits, and a second launch gives the same bits."""
+    g = _gen(D)
+    B, H, KH, S = 8, 16, 16, 2048
+    q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, KH, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, KH, D, generator=g, device=dev).bfloat16()
+    lens = torch.tensor(_split_edges(B, KH, S, B), dtype=torch.int32,
+                        device=dev)
+    with torch.inference_mode():
+        got = attention.decode_attention(q, k, v, lens)
+        torch.testing.assert_close(
+            got.float(),
+            attention._decode_attention_ref(q, k, v, lens).float(),
+            atol=2e-2, rtol=2e-2)
+        assert torch.equal(attention.decode_attention(q, k, v, lens), got)
+
+
+@pytest.mark.parametrize("D", [24, 256])
+def test_kernels_refuse_head_dims_they_are_not_built_for(dev, D):
+    """A head dim outside the kernels' sets raises on the card (never the
+    plain version), and nothing is counted: K6 and K7 take 8, 16, 32, 64
+    and 128, K3-K5 16, 32, 64 and 128."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    before = (attention.decode_attention.launches,
+              pa.paged_decode_attention.launches,
+              attention.flash_forward.launches)
+    q = torch.randn(2, 4, D, device=dev)
+    k = torch.randn(2, 32, 2, D, device=dev)
+    lens = torch.tensor([3, 31], dtype=torch.int32, device=dev)
+    pages = torch.randn(4, 16, 2, D, device=dev)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="D in"):
+            attention.decode_attention(q, k, k, lens)
+        with pytest.raises(ValueError, match="D in"):
+            pa.paged_decode_attention(q, pages, pages, table, lens)
+    for d in (D, 8):
+        x = torch.randn(1, 8, 2, d, device=dev)
+        with pytest.raises(ValueError, match="D in"):
+            attention.flash_forward(x, x, x)
+    assert (attention.decode_attention.launches,
+            pa.paged_decode_attention.launches,
+            attention.flash_forward.launches) == before
+
+
 def test_flash_wrappers_raise_on_the_card(dev):
     q = torch.randn(1, 8, 2, 96, device=dev)
     with pytest.raises(ValueError, match="D in"):
@@ -516,6 +581,11 @@ _PAGED_SHAPES = [   # (B, H, KH, D, ps, P, lengths): chip_smoke's phase 2
     (8, 16, 16, 64, 128, 16,                 # 4 splits: their edges
      _split_edges(8, 16, 2048, 7) + [0]),
     (3, 16, 16, 64, 128, 64, [8191, 5000, 0]),   # long: 11 splits
+    # The small models' head dims: the soak's paged engine (D 8, page 16,
+    # G 2), the examples' D 16, and D 32 over many splits.
+    (4, 4, 2, 8, 16, 8, [0, 15, 16, 127]),
+    (3, 8, 4, 16, 16, 8, [40, 100, 0]),
+    (3, 16, 4, 32, 32, 64, [2047, 64, 0]),
 ]
 
 

@@ -11,7 +11,9 @@ what the JAX package's do and import no optional package (pandas, pyyaml,
 joblib) until a call needs it; rllib has every file of the JAX package's
 and exports exactly its names; devtools (the linter) has every file of
 the JAX package's and imports neither it nor jax; no string in the port
-names a module of the JAX package."""
+names a module of the JAX package. The repo's runnable programs (the
+examples and the soak scripts) have their twins in the port, and no port
+source names the JAX package's serving record."""
 
 import ast
 import os
@@ -106,8 +108,14 @@ _FOREIGN_NAMES = re.compile(
     r"|ray_tpu_results|__ray_tpu_named_actor_registry__|\"ray_tpu\"")
 
 
+# The repo's runnable programs: the examples (the soak scripts are among
+# the cluster sources, in scripts/).
+_EXAMPLE_SOURCES = sorted((ROOT / "ray_tpu_torch" / "examples").rglob(
+    "*.py"))
+
+
 @pytest.mark.parametrize("path", _CLUSTER_SOURCES + _LIBRARY_SOURCES
-                         + _STREAMING_SOURCES,
+                         + _STREAMING_SOURCES + _EXAMPLE_SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_cluster_sources_name_only_the_ports_own_resources(path):
     hits = [(i, line.strip()) for i, line in
@@ -335,6 +343,33 @@ def _rllib_entry_points():
 _ENTRY_POINTS.update(_rllib_entry_points())
 
 
+def _program_entry_points():
+    """The examples and the soak's LM workload: each resolves its device
+    before it starts anything."""
+    from ray_tpu_torch.examples import (cartpole_ppo, hyperparameter_search,
+                                        lm_serving, parameter_server,
+                                        pipelined_transformer, serve_model)
+    from ray_tpu_torch.scripts import soak
+
+    return {
+        "example_lm_serving": lambda: lm_serving.main(smoke=True),
+        "example_serve_model": lambda: serve_model.main(smoke=True),
+        "example_parameter_server": lambda: parameter_server.main(
+            smoke=True),
+        "example_hyperparameter_search": lambda: hyperparameter_search.main(
+            smoke=True),
+        "example_cartpole_ppo": lambda: cartpole_ppo.main(smoke=True),
+        "example_pipelined_transformer": lambda: pipelined_transformer.run(
+            smoke=True),
+        "soak_lm_serve": lambda: soak.lm_serve(1.0),
+        "soak_main": lambda: soak.main(["--workload", "many_tasks",
+                                        "--duration", "1"]),
+    }
+
+
+_ENTRY_POINTS.update(_program_entry_points())
+
+
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
 def test_entry_points_without_device_raise_when_cuda_is_absent(
         name, monkeypatch):
@@ -487,18 +522,23 @@ _COUNTERS = (fused.rms_norm, fused.add_rms_norm, fused.softmax_cross_entropy,
 
 
 @pytest.mark.parametrize("case", [
-    "not_cuda", "cpu_operand", "d96", "mixed_dtypes", "float16"])
+    "not_cuda", "cpu_operand", "d96", "d8", "d24", "d256", "mixed_dtypes",
+    "float16"])
 @pytest.mark.parametrize("name", sorted(_FLASH_WRAPPERS))
 def test_flash_kernel_wrappers_refuse_what_they_do_not_take(name, case):
     """Off the CPU, each flash wrapper takes its kernel or raises: a tensor
     off the card, a CPU operand beside a non-CPU one, a head dim outside
-    {64, 128}, or dtypes the kernels do not take are refused, never handed
+    attention.FLASH_HEAD_DIMS (16, 32, 64, 128; the decode kernels' 8 is
+    not among them), or dtypes the kernels do not take are refused, never handed
     to the plain version, and nothing is counted."""
     args, err, match = {
         "not_cuda": (_flash_meta(), ValueError, "CUDA tensors"),
         "cpu_operand": (_flash_meta(kv_device="cpu"), ValueError,
                         "CUDA tensors"),
         "d96": (_flash_meta(D=96), ValueError, "D in"),
+        "d8": (_flash_meta(D=8), ValueError, "D in"),
+        "d24": (_flash_meta(D=24), ValueError, "D in"),
+        "d256": (_flash_meta(D=256), ValueError, "D in"),
         "mixed_dtypes": (_flash_meta(kv_dtype=torch.bfloat16), TypeError,
                          "one dtype"),
         "float16": (_flash_meta(dtype=torch.float16), TypeError,
@@ -548,17 +588,21 @@ def _paged_meta(D=64, dtype=torch.float32, pages_dtype=None,
 
 
 @pytest.mark.parametrize("case", [
-    "not_cuda", "cpu_operand", "d96", "mixed_dtypes", "float16"])
+    "not_cuda", "cpu_operand", "d96", "d24", "d256", "mixed_dtypes",
+    "float16"])
 def test_paged_decode_kernel_wrapper_refuses_what_it_does_not_take(case):
     """Off the CPU, paged_decode_attention takes K7 or raises: a tensor off
     the card, a CPU operand beside a non-CPU one, a head dim outside
-    {64, 128}, or dtypes the kernel does not take are refused, never handed
+    attention.DECODE_HEAD_DIMS (8, 16, 32, 64, 128), or dtypes the kernel
+    does not take are refused, never handed
     to the plain version, and nothing is counted."""
     args, err, match = {
         "not_cuda": (_paged_meta(), ValueError, "CUDA tensors"),
         "cpu_operand": (_paged_meta(pages_device="cpu"), ValueError,
                         "CUDA tensors"),
         "d96": (_paged_meta(D=96), ValueError, "D in"),
+        "d24": (_paged_meta(D=24), ValueError, "D in"),
+        "d256": (_paged_meta(D=256), ValueError, "D in"),
         "mixed_dtypes": (_paged_meta(pages_dtype=torch.bfloat16), TypeError,
                          "one dtype"),
         "float16": (_paged_meta(dtype=torch.float16), TypeError,
@@ -931,3 +975,28 @@ def test_a_cluster_worker_process_starts_without_torch():
     t = torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)
     back = ctx.deserialize(ctx.serialize({"t": t}))["t"]
     assert back.dtype == torch.bfloat16 and torch.equal(back, t)
+
+
+# The repo's runnable programs (A8.6): the nine examples and the two soak
+# scripts its tests drive.
+_JAX_EXAMPLES = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+
+
+def test_every_example_and_soak_script_has_its_twin():
+    assert len(_JAX_EXAMPLES) == 9
+    assert sorted(p.name for p in _EXAMPLE_SOURCES
+                  if p.name != "__init__.py") == _JAX_EXAMPLES
+    for name in ("soak.py", "serve_soak.py"):
+        assert (ROOT / "ray_tpu_torch" / "scripts" / name).is_file()
+
+
+def test_no_port_source_names_the_jax_packages_serving_record():
+    """BENCH_SERVE.json holds the JAX package's serving runs; the port's
+    serve soak has no --record that would append to it, and no port file
+    names it."""
+    hits = [str(p.relative_to(ROOT)) for p in
+            (ROOT / "ray_tpu_torch").rglob("*")
+            if p.is_file() and p.suffix in (".py", ".md", ".cu", ".cuh",
+                                            ".cc", ".c", ".h", ".json")
+            and "BENCH_SERVE" in p.read_text(errors="replace")]
+    assert hits == []

@@ -161,6 +161,19 @@ def test_decode_plain_matches_jax_decode_attention_d64_g1():
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("D", [8, 16, 32])
+def test_decode_plain_matches_jax_decode_attention_small_head_dims(D):
+    """The small models' head dims (the soak's D 8, the examples' D 16),
+    which the card's K6 takes too and the JAX package sends down its XLA
+    path: GQA (G 2), lengths at 0, mid-cache and S-1; atol 2e-5 as at
+    D 64."""
+    q, k, v, lens = _decode_inputs(3, 4, 2, D, 40, [0, 17, 39], seed=D)
+    ref = jatt.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(lens))
+    np.testing.assert_allclose(_port_decode(q, k, v, lens), np.asarray(ref),
+                               atol=2e-5, rtol=2e-5)
+
+
 def test_decode_wrapper_on_cpu_is_uncounted():
     q, k, v, lens = _decode_inputs(2, 4, 2, 64, 8, [1, 7])
     before = tatt.decode_attention.launches

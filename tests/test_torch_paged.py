@@ -104,6 +104,19 @@ def test_plain_k7_matches_jax_xla_path():
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("D", [8, 16, 32])
+def test_plain_k7_matches_jax_xla_path_small_head_dims(D):
+    """The small models' head dims, which the card's K7 takes too (the
+    soak's paged engine at D 8), at the soak's page size 16: GQA, a page
+    edge and a partly used last page; atol 2e-5 as at D 64."""
+    arrays = _setup(B=3, H=4, KH=2, D=D, ps=16, pages_per_seq=3,
+                    lengths=[0, 15, 40], seed=D)
+    want = jpa.paged_decode_attention(*_jax(arrays))
+    got = tpa.paged_decode_attention(*_port(arrays))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
 @pytest.mark.parametrize("B,H,KH,lengths,pages", [
     (4, 8, 1, [0, 127, 200, 383], 3),      # shuffled pages, page edges
     (2, 16, 2, [45, 255], 2),              # GQA, G = 8

@@ -3,8 +3,9 @@ twins of tests/test_serve_fleet.py's nine fast tests (failover with retry
 budgets, stream fast-fail and purge, replacement of an unhealthy replica,
 drain on scale-down, a replica killed mid-traffic, the fleet's metrics),
 each program run through ``ray_tpu.serve`` then ``ray_tpu_torch.serve`` in
-one process, with what the reference's tests read held equal. The
-reference's chaos soak (``scripts/serve_soak.py``, slow) is not twinned.
+one process, with what the reference's tests read held equal; and, slow
+as the reference's, the port's chaos soak
+(``python -m ray_tpu_torch.scripts.serve_soak``) as shipped.
 
 Then the port's one deviation, C8: ``ReplicaActor.__ray_shutdown__``
 forwards the runtime's teardown hook to the user callable, so each killed
@@ -13,6 +14,9 @@ calls its backend's hook exactly once, and a retired ``LMBackend`` replica
 leaves no pump thread; the reference calls no hook."""
 
 import gc
+import os
+import subprocess
+import sys
 import threading
 import time
 import weakref
@@ -89,12 +93,24 @@ def _wait_for(pred, timeout=10.0):
     return False
 
 
-def _first_probes_done(rt, master, n):
-    """Wait for the reconcile pass that probes a new backend's ``n``
-    replicas at once; with ``health_check_period_s=60`` the next is a
-    minute away, so a replica killed after it stays down."""
+def _first_probes_done(rt, master, tag, n):
+    """Wait for the reconcile pass that probes backend ``tag``'s ``n`` new
+    replicas at once to have its answers; with ``health_check_period_s=60``
+    the next is a minute away, so a replica killed after it stays down.
+
+    The master counts a probe when it starts to wait for its answer, so
+    the count alone leaves the last probes in flight: a kill that finds
+    one still queued at its replica fails it, the master takes the replica
+    for dead and replaces it, and the router's fleet is no longer the one
+    the test killed (under load, "1 known" where "2 known" was read). So
+    each replica is also sent a probe of its own: a replica of concurrency
+    1 answers in order, so when it answers, the master's probe has its
+    answer too."""
     assert _wait_for(lambda: rt.get(master.stat.remote())[
         "fleet_counters"]["probes"] >= n)
+    health = MASTER[rt].HEALTH_CHECK_METHOD
+    for rep in rt.get(master.get_replicas.remote(tag)):
+        rt.get(rep.handle_request.remote(health, (), {}), timeout=10)
 
 
 def _up(rt, master, tag):
@@ -145,7 +161,7 @@ def test_failover_marks_down_and_retries():
         sv.create_endpoint("fo", backend="fo:v1")
         h = sv.get_handle("fo")
         first = rt.get(h.remote(0))
-        _first_probes_done(rt, master, 2)
+        _first_probes_done(rt, master, "fo:v1", 2)
         victim = rt.get(master.get_replicas.remote("fo:v1"))[0]
         rt.kill(victim)
         outs = rt.get([h.remote(i) for i in range(40)])
@@ -168,7 +184,7 @@ def test_retry_budget_exhaustion(monkeypatch):
         sv.create_endpoint("rb", backend="rb:v1")
         h = sv.get_handle("rb")
         first = rt.get(h.remote(1))
-        _first_probes_done(rt, master, 2)
+        _first_probes_done(rt, master, "rb:v1", 2)
         for rep in rt.get(master.get_replicas.remote("rb:v1")):
             rt.kill(rep)
         errs = []
@@ -209,7 +225,7 @@ def test_stream_fast_fail_on_replica_death():
             health_check_period_s=60.0))
         sv.create_endpoint("sf", backend="sf:v1")
         h = sv.get_handle("sf")
-        _first_probes_done(rt, master, 1)
+        _first_probes_done(rt, master, "sf:v1", 1)
         got, t_kill, raised = [], None, None
         try:
             for tok in h.stream(total=1000):
@@ -367,10 +383,17 @@ def test_fleet_metrics_and_cli_surface():
         metrics = METRICS[rt]
 
         def exported():
+            # Both series the test reads: the master's export that first
+            # shows the replica up may have read the router's latencies
+            # before the 10 calls were recorded (seen under load: no p99
+            # line in one half); the next export, a tick later, has them.
             values = metrics.collect_all().get(
                 "serve_replicas", {}).get("values", {})
-            return any("fm:v1" in tags and "'up'" in tags and v == 1
-                       for tags, v in values.items())
+            up = any("fm:v1" in tags and "'up'" in tags and v == 1
+                     for tags, v in values.items())
+            return up and any(
+                ln.startswith('serve_route_latency_p99_ms{endpoint="fm"}')
+                for ln in metrics.render_prometheus().splitlines())
 
         seen = _wait_for(exported)
         text = metrics.render_prometheus()
@@ -617,3 +640,16 @@ def test_a_probe_under_way_at_shutdown_builds_no_replica():
 
     assert same(prog) == (1, True)
 
+
+
+@pytest.mark.slow
+def test_chaos_soak_script():
+    # The full drill as shipped: sustained call+stream mix, replicas
+    # SIGKILLed every few seconds, zero failed requests.
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.serve_soak",
+         "--duration", "15", "--kill-every", "4"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SOAK OK" in proc.stdout

@@ -163,6 +163,12 @@ _FLASH_CASES = {
     "noncausal_d128": (2, 16, 2, 2, 128, False, 8),
     "gqa_causal_d64": (1, 32, 4, 2, 64, True, 8),
     "gqa_noncausal_d128": (1, 16, 4, 2, 128, False, 8),
+    # The small models' head dims (the examples and soak scripts), which
+    # the card's K3-K5 take too.
+    "gqa_causal_d16": (1, 32, 4, 2, 16, True, 16),
+    "noncausal_d16": (2, 16, 2, 2, 16, False, 8),
+    "causal_multiblock_d32": (1, 32, 2, 2, 32, True, 8),
+    "gqa_noncausal_d32": (1, 16, 4, 2, 32, False, 8),
 }
 
 
